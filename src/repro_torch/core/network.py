@@ -1,0 +1,907 @@
+"""The decentralized network: routing workflow + baselines (paper §3.2, Fig 1b/9).
+
+``Network`` wires nodes, the event loop, the credit ledger, gossip, and the
+duel-and-judge mechanism together, and supports three deployment modes used
+throughout the paper's evaluation (§6.1):
+
+* ``single``        — every node serves only its own users (no cooperation).
+* ``centralized``   — an omniscient global dispatcher assigns each arrival to
+                      the least-loaded node (upper-bound baseline).
+* ``decentralized`` — the WWW.Serve protocol: policy-driven offloading,
+                      PoS executor selection, probing, credit transactions,
+                      duels, gossip-maintained membership.
+
+Decentralized offload routing itself has two flavors (DESIGN.md
+§6.2-gossip), selected by ``routing=``:
+
+* ``gossip`` (default) — rank candidates from the local stale-digest table
+  that gossip maintains, discounting each digest by its age; dispatch to
+  the top-ranked candidate outright and spend live probes only when the
+  top two are too close to call.  Per-request message cost is ~1
+  regardless of network size.
+* ``probe``           — the pre-gossip behavior: PoS-sample candidates and
+  probe each one's live load inline until one accepts (optionally
+  power-of-two).  Message cost grows with the probe budget; kept as the
+  scaling-bench baseline.
+"""
+
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.duel import DuelOutcome, DuelParams, run_duel
+from repro_torch.core.gossip import gossip_round
+from repro_torch.core.ledger import (CreditChain, CreditOp, LedgerError, SharedLedger)
+from repro_torch.core.node import Node, QueuedRequest
+from repro_torch.core.pos import pos_sample, pos_sample_one
+from repro_torch.obs import MetricsRegistry, get_tracer
+from repro_torch.sim.events import EventLoop
+from repro_torch.sim.executor import digest_staleness_weight, prefix_fingerprint_id
+from repro_torch.sim.metrics import CompletedRequest, MetricsCollector
+from repro_torch.sim.servicemodel import (_DIGEST_PRESSURE_PRIOR,
+                                          _DIGEST_TIE_EPS,
+                                          _KV_BYTES_PER_TOKEN,
+                                          _TRANSFER_BYTES_PER_S,
+                                          _TRANSFER_EMA_BETA)
+from repro_torch.sim.workload import Request
+
+_TREASURY = "__treasury__"
+
+
+def _mix_pressure(prefill_headroom: float, decode_headroom: float,
+                  expected_tokens_per_step: float, req: Request) -> float:
+    """Phase-mix pressure formula shared by live probes and gossip digests:
+    each phase's occupancy weighted by the request's token mix, decode
+    occupancy discounted by the speculative turnover factor."""
+    total = max(1, req.prompt_tokens + req.output_tokens)
+    wp = req.prompt_tokens / total
+    return (wp * (1.0 - prefill_headroom)
+            + (1.0 - wp) * (1.0 - decode_headroom)
+            / expected_tokens_per_step)
+
+
+@dataclass
+class _DuelState:
+    duel_id: str
+    req: Request
+    origin: str
+    executors: Tuple[str, str]
+    finished: List[str] = field(default_factory=list)
+    user_served: bool = False
+    judges_done: int = 0
+    judges: Tuple[str, ...] = ()
+
+
+class Network:
+    def __init__(self, mode: str = "decentralized", *, seed: int = 0,
+                 ledger_mode: str = "shared", msg_latency: float = 0.05,
+                 duel: Optional[DuelParams] = None,
+                 gossip_interval: float = 1.0, gossip_fanout: int = 2,
+                 suspect_after: float = 5.0,
+                 init_balance: float = 20.0,
+                 restake_interval: Optional[float] = 30.0,
+                 restake_fraction: float = 0.5,
+                 max_probes: int = 3,
+                 power_of_two: bool = False,
+                 routing: str = "gossip",
+                 cache_affinity: bool = True,
+                 registry: Optional[MetricsRegistry] = None) -> None:
+        assert mode in ("single", "centralized", "decentralized")
+        assert ledger_mode in ("shared", "chain")
+        assert routing in ("gossip", "probe")
+        self.mode = mode
+        self.routing = routing
+        self.ledger_mode = ledger_mode
+        self.loop = EventLoop()
+        self.rng = np.random.default_rng(seed)
+        self.nodes: Dict[str, Node] = {}
+        self.metrics = MetricsCollector()
+        self.duel_params = duel or DuelParams()
+        self.msg_latency = msg_latency
+        self.gossip_interval = gossip_interval
+        self.gossip_fanout = gossip_fanout
+        self.suspect_after = suspect_after
+        self.init_balance = init_balance
+        self.restake_interval = restake_interval
+        self.restake_fraction = restake_fraction
+        self.max_probes = max_probes
+        self.power_of_two = power_of_two
+        # cache-affinity dispatch (DESIGN.md §6.1-prefix): among near-tied
+        # gossip leaders, prefer nodes whose digest advertises the request's
+        # shared prefix as resident — a pressure tie is not a real tie when
+        # one node can skip most of the prefill
+        self.cache_affinity = cache_affinity
+
+        self.shared_ledger = SharedLedger()
+        self.chains: Dict[str, CreditChain] = {}
+        self._duels: Dict[str, _DuelState] = {}
+        self._duel_ctr = itertools.count()
+        self.credit_trace: List[Tuple[float, str, float]] = []  # (t, node, credit)
+        self.block_confirmations: List[int] = []
+        self._shutdown = False
+        # per-node observed KV-transfer rate (disagg handoffs), learned from
+        # ExecutorLoad.handoff_bytes deltas; seeded with the static link
+        # constant so routing is unchanged until observations arrive
+        self._transfer_rate_ema: Dict[str, float] = {}
+        self._transfer_obs: Dict[str, Tuple[float, int]] = {}
+        # message accounting (DESIGN.md §6.2-gossip): "probe" counts live
+        # load round-trips, "dispatch" delegated hand-offs, "bounce"
+        # delivery-time declines, "gossip" per-round view exchanges,
+        # "dropped" queued requests lost to churn/shutdown drains,
+        # "giveup" offload attempts that found every candidate saturated
+        # (DESIGN.md §Observability).  The scaling bench derives routing
+        # messages-per-request from these; every increment also feeds the
+        # labeled ``repro.obs`` registry so snapshots stay auditable.
+        self.msg_counts: Dict[str, int] = {
+            "probe": 0, "dispatch": 0, "bounce": 0, "gossip": 0,
+            "dropped": 0, "giveup": 0}
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+
+        # seed the treasury that funds duel bonuses / judge fees
+        self._apply_ops([CreditOp("mint", "", _TREASURY, 1e9)], proposer=None)
+
+    # ------------------------------------------------------------- membership
+    def add_node(self, node: Node) -> None:
+        node.network = self
+        node.bind_executor(self.loop)
+        self.nodes[node.id] = node
+        if self.ledger_mode == "chain":
+            chain = CreditChain(node.id)
+            donors = [c for c in self.chains.values() if c.blocks]
+            if donors:
+                # bootstrap: replay history from the longest live chain
+                donor = max(donors, key=lambda c: len(c.blocks))
+                for blk in donor.blocks:
+                    chain.append(blk)
+            else:
+                # first chain: write the treasury genesis block
+                genesis = chain.propose(
+                    [CreditOp("mint", "", _TREASURY, 1e9)], self.loop.now,
+                    node.secret if hasattr(node, "secret") else b"sys")
+                chain.append(genesis)
+            self.chains[node.id] = chain
+        ops = [CreditOp("mint", "", node.id, self.init_balance + node.policy.stake),
+               CreditOp("stake", node.id, "", node.policy.stake)]
+        self._apply_ops(ops, proposer=node.id)
+        # introduce to the network: one gossip exchange with an online peer
+        for other in self.nodes.values():
+            if other is not node and other.online:
+                gossip_round(node.view, other.view)
+                break
+
+    # ----------------------------------------------------------------- ledger
+    def _apply_ops(self, ops: Sequence[CreditOp], proposer: Optional[str]) -> None:
+        if self.ledger_mode == "shared" or proposer is None or not self.chains:
+            try:
+                self.shared_ledger.apply(ops)
+            except LedgerError:
+                pass  # e.g. slashing an already-empty stake: drop the op set
+            return
+        # full-chain path: proposer builds + signs a block, broadcasts, and the
+        # block finalizes once a majority of ONLINE peers validate + append.
+        # Offline peers miss the broadcast and resync on rejoin (below).
+        chain = self.chains[proposer]
+        node = self.nodes.get(proposer)
+        secret = node.secret if node else b"sys"
+        block = chain.propose(ops, self.loop.now, secret)
+        peers = {nid: c for nid, c in self.chains.items()
+                 if nid not in self.nodes or self.nodes[nid].online}
+        confirms = sum(1 for c in peers.values() if c.validate(block)[0])
+        self.block_confirmations.append(confirms)
+        if confirms * 2 > len(peers):
+            for peer_chain in peers.values():
+                try:
+                    peer_chain.append(block)
+                except LedgerError:
+                    pass
+            # mirror into the shared view so balance reads stay O(1)
+            try:
+                self.shared_ledger.apply(ops)
+            except LedgerError:
+                pass
+
+    def resync_chain(self, node_id: str) -> int:
+        """Catch a rejoining node's chain up from the longest live chain
+        (paper: 'newly joined resources can be quickly integrated').
+        Returns the number of blocks replayed."""
+        if self.ledger_mode != "chain" or node_id not in self.chains:
+            return 0
+        mine = self.chains[node_id]
+        donors = [c for nid, c in self.chains.items()
+                  if nid != node_id
+                  and (nid not in self.nodes or self.nodes[nid].online)]
+        if not donors:
+            return 0
+        donor = max(donors, key=lambda c: len(c.blocks))
+        replayed = 0
+        for blk in donor.blocks[len(mine.blocks):]:
+            try:
+                mine.append(blk)
+                replayed += 1
+            except LedgerError:
+                break
+        return replayed
+
+    def ledger_balance(self, node_id: str) -> float:
+        return self.shared_ledger.balance_of(node_id)
+
+    def ledger_stakes(self) -> Dict[str, float]:
+        return self.shared_ledger.stakes()
+
+    # ------------------------------------------------------- event accounting
+    def _count_msg(self, kind: str, n: int = 1) -> None:
+        self.msg_counts[kind] += n
+        self.registry.counter("net.messages", kind=kind).inc(n)
+
+    def _count_dropped(self, reason: str) -> None:
+        """A queued request fell out of a queue (churn rerouting, or a
+        shutdown drain with nobody online).  Previously invisible; the
+        event feeds both the ``dropped`` key next to ``msg_counts`` and a
+        labeled registry counter so SLO denominators can be audited
+        against completions end to end (DESIGN.md §Observability)."""
+        self.msg_counts["dropped"] += 1
+        self.registry.counter("net.dropped", reason=reason).inc()
+
+    def _count_giveup(self, path: str) -> None:
+        """An offload attempt found every candidate saturated or burned
+        its probe budget; the request falls back to the origin's local
+        queue.  Counted so 'how often did routing fail to help' is a
+        first-class number rather than a diff of other counters."""
+        self.msg_counts["giveup"] += 1
+        self.registry.counter("net.giveup", path=path).inc()
+
+    # -------------------------------------------------------------- workflow
+    def submit(self, req: Request) -> None:
+        if self.mode == "centralized":
+            self._dispatch_centralized(req)
+        else:
+            self.nodes[req.origin].submit(req)
+
+    def resubmit_elsewhere(self, req: Request,
+                           enqueued_at: Optional[float] = None) -> None:
+        """Re-target ``req`` at a random online node (churn rerouting).
+
+        ``enqueued_at`` is the request's *original* enqueue time, preserved
+        across the re-enqueue so ``queue_wait`` keeps counting the time
+        already spent queued at the node that dropped it.
+        """
+        enq = self.loop.now if enqueued_at is None else enqueued_at
+        online = [n for n in self.nodes.values() if n.online]
+        if not online:
+            if self._shutdown:
+                self._count_dropped("shutdown")
+                return   # draining with nobody online: drop, don't spin
+            self.loop.schedule(5.0,
+                               lambda: self.resubmit_elsewhere(req, enq))
+            return
+        pick = online[int(self.rng.integers(len(online)))]
+        tr = get_tracer()
+        if tr.enabled:
+            tr.event("route.decide", req.rid, pick.id, self.loop.now,
+                     mode=self.mode, outcome="resubmit")
+        # executing another node's traffic is delegation even when it got
+        # here via churn rerouting: keep the flag (and the credit transfer
+        # at completion) truthful
+        pick.enqueue(QueuedRequest(req, enq,
+                                   delegated=pick.id != req.origin,
+                                   origin_node=req.origin))
+
+    def _est_wait(self, node: Node, req: Request) -> float:
+        """Omniscient load estimate for the centralized baseline, built from
+        the executor's load snapshot (queued + in-flight token backlog in
+        both phases).  A speculative backend's decode backlog drains
+        ``expected_tokens_per_step`` times faster per target forward
+        (DESIGN.md §6.1-spec), so its effective decode capacity is scaled
+        by the acceptance model the load report carries (>= 1 by
+        construction; 1.0 on non-speculative backends).  This treats a
+        verify forward as costing one decode forward — the draft's own
+        overhead is charged by the ``executor.estimate`` term below, which
+        both spec executors fold it into."""
+        ld = node.executor.load()
+        backlog = sum(q.req.output_tokens for q in
+                      node.local_queue + node.delegated_queue)
+        backlog += ld.pending_decode_tokens
+        cap = (node.profile.decode_tps * node.profile.saturation
+               * ld.expected_tokens_per_step)
+        est = (backlog / cap
+               + ld.pending_prefill_tokens / node.profile.prefill_tps
+               + node.executor.estimate(req.prompt_tokens,
+                                        req.output_tokens))
+        # disagg backends queue this request's prefilled KV behind the
+        # handoffs already on the wire; charge them at the node's LEARNED
+        # transfer rate rather than the static link constant
+        rate = self._observe_transfer_rate(node.id, self.loop.now,
+                                           ld.handoff_bytes)
+        if ld.transfer_inflight > 0:
+            est += (ld.transfer_inflight * req.prompt_tokens
+                    * _KV_BYTES_PER_TOKEN / rate)
+        return est
+
+    def _observe_transfer_rate(self, nid: str, t: float,
+                               handoff_bytes: int) -> float:
+        """Per-node EMA of the observed KV handoff rate (DESIGN.md
+        §6.1-disagg): every sighting of a node's load — an omniscient
+        ``_est_wait`` read, a live probe, or a gossip digest stamped with
+        its origin time ``t`` — exposes cumulative ``handoff_bytes``, so
+        the bytes moved between two sightings over the elapsed sim time is
+        a direct throughput sample of that node's actual link, which the
+        static ``_TRANSFER_BYTES_PER_S`` model cannot see.  Zero-byte
+        windows are skipped (an idle link is not a slow link), and samples
+        older than the last recorded sighting are ignored (a stale digest
+        arriving after a fresh probe must not rewind the baseline)."""
+        rate = self._transfer_rate_ema.get(nid, _TRANSFER_BYTES_PER_S)
+        last = self._transfer_obs.get(nid)
+        if last is not None and t <= last[0]:
+            return rate
+        self._transfer_obs[nid] = (t, handoff_bytes)
+        if last is not None:
+            dt = t - last[0]
+            db = handoff_bytes - last[1]
+            if db > 0:
+                rate += _TRANSFER_EMA_BETA * (db / dt - rate)
+                self._transfer_rate_ema[nid] = rate
+        return rate
+
+    def _phase_pressure(self, node: Node, req: Request) -> float:
+        """Phase-aware load score in [0, 1]: each phase's KV occupancy
+        weighted by the request's token mix, so prompt-heavy requests chase
+        prefill headroom and decode-heavy requests chase decode headroom
+        (DESIGN.md §6.1-disagg).  For colocated backends both headrooms
+        collapse to ``kv_headroom`` and this reduces to plain KV pressure.
+
+        The decode term is discounted by the backend's
+        ``expected_tokens_per_step`` (DESIGN.md §6.1-spec; >= 1 by
+        construction, 1.0 on non-speculative backends): the same KV
+        occupancy on a speculation-enabled node turns over
+        acceptance-model-times faster, so decode-heavy requests chase
+        spec-enabled nodes before equally-occupied plain ones.  Draft
+        overhead is deliberately ignored here — pressure ranks occupancy,
+        and the overhead is second-order next to the E-fold turnover.
+        """
+        ld = node.executor.load()
+        return _mix_pressure(ld.prefill_headroom, ld.decode_headroom,
+                             ld.expected_tokens_per_step, req)
+
+    def _probe_pressure(self, node: Node, req: Request) -> float:
+        """A *live* load probe: one request/response round-trip on the wire
+        (counted in ``msg_counts``), whose response also carries a fresh
+        ``handoff_bytes`` sample for the transfer-rate EMA."""
+        self._count_msg("probe")
+        ld = node.executor.load()
+        self._observe_transfer_rate(node.id, self.loop.now, ld.handoff_bytes)
+        return _mix_pressure(ld.prefill_headroom, ld.decode_headroom,
+                             ld.expected_tokens_per_step, req)
+
+    def _digest_pressure(self, origin: Node, nid: str, req: Request) -> float:
+        """Pressure inferred for ``nid`` from ``origin``'s gossip-learned
+        digest table, with no message sent (DESIGN.md §6.2-gossip).  The
+        digest's raw pressure is discounted toward the neutral prior by
+        its age; a peer with no digest yet scores exactly the prior.  The
+        digest's ``handoff_bytes`` doubles as a transfer-rate observation
+        stamped at its origin time."""
+        d = origin.view.digest_of(nid)
+        if d is None:
+            return _DIGEST_PRESSURE_PRIOR
+        self._observe_transfer_rate(nid, d.t, d.handoff_bytes)
+        raw = _mix_pressure(d.prefill_headroom, d.decode_headroom,
+                            d.expected_tokens_per_step, req)
+        w = digest_staleness_weight(self.loop.now - d.t)
+        return w * raw + (1.0 - w) * _DIGEST_PRESSURE_PRIOR
+
+    def _dispatch_centralized(self, req: Request,
+                              enqueued_at: Optional[float] = None) -> None:
+        enq = self.loop.now if enqueued_at is None else enqueued_at
+        online = [n for n in self.nodes.values() if n.online]
+        if not online:
+            if self._shutdown:
+                self._count_dropped("shutdown")
+                return   # draining with nobody online: drop, don't spin
+            self.loop.schedule(
+                5.0, lambda: self._dispatch_centralized(req, enq))
+            return
+        best = min(online, key=lambda n: self._est_wait(n, req))
+        delegated = best.id != req.origin
+        lat = self.msg_latency if delegated else 0.0
+        tr = get_tracer()
+        if tr.enabled:
+            tr.span("route.decide", req.rid, req.origin, enq,
+                    self.loop.now + lat, mode="centralized",
+                    outcome="dispatch" if delegated else "local",
+                    target=best.id)
+        self.loop.schedule(lat, lambda: best.enqueue(
+            QueuedRequest(req, enq, delegated=delegated,
+                          origin_node=req.origin)))
+
+    # -- decentralized offload (paper Fig 9 step 3.2): digest-table ranking
+    # (routing="gossip", DESIGN.md §6.2-gossip) or PoS sampling + live
+    # probing (routing="probe") --
+    def try_offload(self, origin: Node, req: Request,
+                    enqueued_at: Optional[float] = None) -> bool:
+        stakes = self.ledger_stakes()
+        eligible = [p for p in origin.view.online_peers()
+                    if p in self.nodes and self.nodes[p].online]
+        if not eligible:
+            return False
+        if self.rng.random() < self.duel_params.p_d and len(eligible) >= 2:
+            return self._start_duel(origin, req, stakes, eligible)
+        if self.routing == "gossip":
+            return self._offload_gossip(origin, req, eligible, stakes,
+                                        enqueued_at)
+        return self._offload_probe(origin, req, eligible, stakes, enqueued_at)
+
+    def _offload_gossip(self, origin: Node, req: Request,
+                        eligible: Sequence[str], stakes: Dict[str, float],
+                        enqueued_at: Optional[float]) -> bool:
+        """Digest-table routing (DESIGN.md §6.2-gossip): rank every known
+        peer by staleness-discounted pressure at zero message cost.
+
+        * Every candidate at/above saturation pressure → give up without a
+          single message (the probe path would burn its whole probe budget
+          discovering the same thing).
+        * Best pressure in the *contended or unknown* region (>= the
+          neutral prior) with a near-tie → the stale table can't be
+          trusted to pick: probe the top two live and take the better
+          accepting one (this is also the cold-start path, since peers
+          with no digest yet score exactly the prior).
+        * Otherwise — gossip recently showed clear headroom — dispatch
+          outright with zero probes, picking stake-weighted among the
+          near-tied leaders (PoS incentive + herd avoidance); the receiver
+          applies its acceptance policy at delivery and bounces declines.
+        """
+        scored = sorted((self._digest_pressure(origin, nid, req), nid)
+                        for nid in eligible)
+        best_pr = scored[0][0]
+        if best_pr >= 1.0:
+            self._count_giveup("gossip")
+            return False
+        enq = self.loop.now if enqueued_at is None else enqueued_at
+        near = [nid for pr, nid in scored if pr - best_pr < _DIGEST_TIE_EPS]
+        if best_pr >= _DIGEST_PRESSURE_PRIOR and len(near) >= 2:
+            # contended and too close to call from stale digests: probe the
+            # top two live — prefix-warm near-tied peers first, so an exact
+            # live-pressure tie resolves toward the cache (§6.1-prefix)
+            probe_order = (self._affinity_filter(origin, req, near)
+                           + [nid for _pr, nid in scored])
+            seen: set = set()
+            top2 = [nid for nid in probe_order
+                    if not (nid in seen or seen.add(nid))][:2]
+            best = None
+            for nid in top2:
+                cand = self.nodes[nid]
+                live = self._probe_pressure(cand, req)
+                if (cand.online and live < 1.0
+                        and cand.policy.accepts_delegated(
+                            cand.n_active, cand.profile.saturation,
+                            len(cand.delegated_queue), self.rng)
+                        and (best is None or live < best[0])):
+                    best = (live, cand)
+            if best is None:
+                self._count_giveup("gossip")
+                return False
+            pick = best[1]
+            self._count_msg("dispatch")
+            delay = 2 * self.msg_latency + self.msg_latency
+            tr = get_tracer()
+            if tr.enabled:
+                tr.span("route.decide", req.rid, origin.id, enq,
+                        self.loop.now + delay, mode="gossip",
+                        outcome="probe", target=pick.id, probed=top2,
+                        pressure=round(best[0], 4),
+                        candidates=[[nid, round(pr, 4)]
+                                    for pr, nid in scored[:3]])
+            self.loop.schedule(delay, lambda: pick.enqueue(
+                QueuedRequest(req, enq, delegated=True,
+                              origin_node=origin.id)))
+            return True
+        full = near
+        near = self._affinity_filter(origin, req, near)
+        pick_id = pos_sample_one(stakes, near, self.rng)
+        if pick_id is None:
+            return False
+        pick = self.nodes[pick_id]
+        self._count_msg("dispatch")
+        tr = get_tracer()
+        if tr.enabled:
+            d = origin.view.digest_of(pick_id)
+            tr.span("route.decide", req.rid, origin.id, enq,
+                    self.loop.now + self.msg_latency, mode="gossip",
+                    outcome="dispatch", target=pick_id,
+                    pressure=round(best_pr, 4),
+                    staleness=(round(self.loop.now - d.t, 4)
+                               if d is not None else None),
+                    affinity=len(near) < len(full),
+                    candidates=[[nid, round(pr, 4)]
+                                for pr, nid in scored[:3]])
+        self.loop.schedule(self.msg_latency, lambda: self._deliver_offload(
+            pick, QueuedRequest(req, enq, delegated=True,
+                                origin_node=origin.id)))
+        return True
+
+    def _affinity_filter(self, origin: Node, req: Request,
+                         near: List[str]) -> List[str]:
+        """Cache-affinity tie-break (DESIGN.md §6.1-prefix): when several
+        near-tied leaders exist and the request names a shared prefix,
+        narrow the stake-weighted draw to peers whose gossip digest lists
+        that prefix's fingerprint as resident — they can serve most of the
+        prompt from cached pages.  Pressure stays the primary signal: this
+        only breaks ties, never overrides a clearly less-loaded peer, and
+        falls back to the full near-tie set when no digest advertises the
+        prefix (or affinity is disabled)."""
+        if (not self.cache_affinity or req.prefix_id is None
+                or len(near) < 2):
+            return near
+        fp = prefix_fingerprint_id(req.prefix_id)
+        warm = []
+        for nid in near:
+            d = origin.view.digest_of(nid)
+            if d is not None and fp in d.resident_prefixes:
+                warm.append(nid)
+        return warm or near
+
+    def _deliver_offload(self, cand: Node, qr: QueuedRequest) -> None:
+        """Delivery of an optimistically-dispatched offload (gossip
+        routing): the probe path consulted the acceptance policy before
+        dispatching, so here the *receiving* node applies it at delivery
+        time instead, bouncing declines back to the origin (offline
+        candidates bounce through the usual churn path inside
+        ``enqueue``).  The bounce preserves the original enqueue time."""
+        if cand.online and not cand.policy.accepts_delegated(
+                cand.n_active, cand.profile.saturation,
+                len(cand.delegated_queue), self.rng):
+            self._count_msg("bounce")
+            tr = get_tracer()
+            if tr.enabled:
+                tr.event("route.decide", qr.req.rid, cand.id,
+                         self.loop.now, mode=self.mode, outcome="bounce")
+            origin = self.nodes.get(qr.origin_node)
+            if origin is not None and origin.online:
+                origin.enqueue(QueuedRequest(qr.req, qr.enqueue_time,
+                                             delegated=False,
+                                             origin_node=qr.origin_node))
+            else:
+                self.resubmit_elsewhere(qr.req, enqueued_at=qr.enqueue_time)
+            return
+        cand.enqueue(qr)
+
+    def _offload_probe(self, origin: Node, req: Request,
+                       eligible: Sequence[str], stakes: Dict[str, float],
+                       enqueued_at: Optional[float]) -> bool:
+        probes = 0
+        tried: List[str] = []
+        while probes < self.max_probes:
+            if self.power_of_two:
+                # BEYOND-PAPER: power-of-two-choices on top of PoS — sample
+                # two candidates by stake, probe both, pick the less loaded
+                # *for this request's phase mix* (prompt-heavy requests chase
+                # prefill headroom, decode-heavy ones decode headroom).
+                # Keeps PoS incentives (both draws are stake-weighted) while
+                # exploiting the probe the protocol already pays for.
+                pair = pos_sample(stakes, eligible, 2, self.rng,
+                                  exclude=tried)
+                if not pair:
+                    break
+                pressure = {n: self._probe_pressure(self.nodes[n], req)
+                            for n in pair}
+                pair.sort(key=lambda n: (pressure[n],
+                                         self.nodes[n].utilization()))
+                cand_id = pair[0]
+                probes += 1
+                tried.extend(pair)
+            else:
+                cand_id = pos_sample_one(stakes, eligible, self.rng,
+                                         exclude=tried)
+                if cand_id is None:
+                    break
+                probes += 1
+                tried.append(cand_id)
+                pressure = {cand_id: self._probe_pressure(
+                    self.nodes[cand_id], req)}
+            cand = self.nodes[cand_id]
+            # a probe response exposing zero headroom for this request's
+            # phase mix is a decline — keep probing (the request would only
+            # sit in the candidate's queue behind the saturated phase)
+            if (cand.online
+                    and pressure[cand_id] < 1.0
+                    and cand.policy.accepts_delegated(
+                        cand.n_active, cand.profile.saturation,
+                        len(cand.delegated_queue), self.rng)):
+                self._count_msg("dispatch")
+                enq = self.loop.now if enqueued_at is None else enqueued_at
+                delay = 2 * self.msg_latency * probes + self.msg_latency
+                tr = get_tracer()
+                if tr.enabled:
+                    tr.span("route.decide", req.rid, origin.id, enq,
+                            self.loop.now + delay, mode="probe",
+                            outcome="dispatch", target=cand_id,
+                            probes=probes,
+                            pressure=round(pressure[cand_id], 4))
+                self.loop.schedule(delay, lambda cand=cand: cand.enqueue(
+                    QueuedRequest(req, enq, delegated=True,
+                                  origin_node=origin.id)))
+                return True
+        self._count_giveup("probe")
+        return False
+
+    @property
+    def routing_messages(self) -> int:
+        """Total routing-plane messages so far: two per live probe
+        (request + response), one per delegated dispatch, one per bounce.
+        Gossip-plane traffic is accounted separately in
+        ``msg_counts["gossip"]``."""
+        c = self.msg_counts
+        return 2 * c["probe"] + c["dispatch"] + c["bounce"]
+
+    def on_queued_dropped(self, node: Node, qr: QueuedRequest) -> None:
+        """A node went offline with ``qr`` still queued (never admitted).
+
+        Plain user traffic is resubmitted to an online peer.  Duel legs are
+        instead marked finished-without-response so the duel still resolves,
+        and judge evaluations are counted done — resubmitting either would
+        double-record the user request or run a judge against the wrong
+        model.
+        """
+        self._count_dropped("offline")
+        tr = get_tracer()
+        if tr.enabled:
+            tr.event("route.drop", qr.req.rid, node.id, self.loop.now,
+                     duel=qr.duel_id is not None)
+        if qr.duel_id is None:
+            self.resubmit_elsewhere(qr.req, enqueued_at=qr.enqueue_time)
+            return
+        if qr.duel_id.endswith(":judging"):
+            st = self._duels.get(qr.duel_id.rsplit(":", 1)[0])
+            if st is not None:
+                self._on_judge_done(st)
+            return
+        st = self._duels.get(qr.duel_id)
+        if st is not None:
+            st.finished.append(node.id)
+            if len(st.finished) == 2:
+                if not st.user_served:
+                    # both legs lost to churn: nobody will ever respond, so
+                    # the user's request re-enters the network as plain work
+                    st.user_served = True
+                    self.resubmit_elsewhere(st.req)
+                self._dispatch_judges(st)
+
+    def _start_duel(self, origin: Node, req: Request, stakes: Dict[str, float],
+                    eligible: Sequence[str]) -> bool:
+        execs = pos_sample(stakes, eligible, 2, self.rng)
+        if len(execs) < 2:
+            return False
+        accepted = []
+        for eid in execs:
+            e = self.nodes[eid]
+            if e.online and e.policy.accepts_delegated(
+                    e.n_active, e.profile.saturation,
+                    len(e.delegated_queue), self.rng):
+                accepted.append(eid)
+        if len(accepted) < 2:
+            return False
+        did = f"duel-{next(self._duel_ctr)}"
+        self._duels[did] = _DuelState(did, req, origin.id,
+                                      (accepted[0], accepted[1]))
+        for i, eid in enumerate(accepted):
+            e = self.nodes[eid]
+            delay = 3 * self.msg_latency
+            self.loop.schedule(delay, lambda e=e, i=i: e.enqueue(
+                QueuedRequest(req, self.loop.now, delegated=True,
+                              origin_node=origin.id, duel_id=did)))
+        return True
+
+    # ------------------------------------------------------------ completion
+    @staticmethod
+    def _timings(qr: QueuedRequest) -> Tuple[float, float]:
+        """(ttft, queue_wait) from the executor's completion timestamps."""
+        nan = float("nan")
+        ttft = (qr.first_token_at - qr.req.arrival
+                if qr.first_token_at is not None else nan)
+        wait = (qr.started_at - qr.enqueue_time
+                if qr.started_at is not None else nan)
+        return ttft, wait
+
+    def on_request_finished(self, executor: Node, qr: QueuedRequest) -> None:
+        now = self.loop.now
+        ttft, queue_wait = self._timings(qr)
+        if qr.duel_id is not None:
+            if qr.duel_id.endswith(":judging"):
+                self.metrics.record(CompletedRequest(
+                    rid=qr.req.rid, origin=qr.origin_node, executor=executor.id,
+                    arrival=qr.req.arrival, finish=now, slo_s=qr.req.slo_s,
+                    delegated=True, is_duel_extra=True,
+                    ttft=ttft, queue_wait=queue_wait))
+                st = self._duels.get(qr.duel_id.rsplit(":", 1)[0])
+                if st is not None:
+                    self._on_judge_done(st)
+                return
+            self._on_duel_response(executor, qr)
+            return
+        finish = now + (self.msg_latency if qr.delegated else 0.0)
+        tr = get_tracer()
+        if tr.enabled and qr.delegated:
+            # the response transit back to the origin — the last leg of
+            # the request's latency partition (DESIGN.md §Observability)
+            tr.span("route.return", qr.req.rid, executor.id, now, finish)
+        self.metrics.record(CompletedRequest(
+            rid=qr.req.rid, origin=qr.origin_node, executor=executor.id,
+            arrival=qr.req.arrival, finish=finish, slo_s=qr.req.slo_s,
+            delegated=qr.delegated, is_duel_extra=qr.req.is_duel_extra,
+            ttft=ttft, queue_wait=queue_wait))
+        if qr.delegated and not qr.req.is_duel_extra:
+            price = self.nodes[qr.origin_node].policy.offload_price \
+                if qr.origin_node in self.nodes else 1.0
+            self._apply_ops(
+                [CreditOp("transfer", qr.origin_node, executor.id, price,
+                          ref=qr.req.rid)], proposer=executor.id)
+
+    def _on_duel_response(self, executor: Node, qr: QueuedRequest) -> None:
+        st = self._duels.get(qr.duel_id)
+        if st is None:
+            return
+        st.finished.append(executor.id)
+        ttft, queue_wait = self._timings(qr)
+        if not st.user_served:
+            # the first response back serves the user
+            st.user_served = True
+            self.metrics.record(CompletedRequest(
+                rid=st.req.rid, origin=st.origin, executor=executor.id,
+                arrival=st.req.arrival, finish=self.loop.now + self.msg_latency,
+                slo_s=st.req.slo_s, delegated=True, is_duel_extra=False,
+                ttft=ttft, queue_wait=queue_wait))
+            price = self.nodes[st.origin].policy.offload_price \
+                if st.origin in self.nodes else 1.0
+            self._apply_ops([CreditOp("transfer", st.origin, executor.id,
+                                      price, ref=st.req.rid)],
+                            proposer=executor.id)
+        else:
+            # challenger inference: counts as duel overhead (paper §7.1)
+            self.metrics.record(CompletedRequest(
+                rid=f"{st.req.rid}-challenger", origin=st.origin,
+                executor=executor.id, arrival=st.req.arrival,
+                finish=self.loop.now, slo_s=st.req.slo_s,
+                delegated=True, is_duel_extra=True))
+        if len(st.finished) == 2:
+            self._dispatch_judges(st)
+
+    def _dispatch_judges(self, st: _DuelState) -> None:
+        stakes = self.ledger_stakes()
+        eligible = [n for n, node in self.nodes.items()
+                    if node.online and n not in st.executors and n != st.origin]
+        judges = pos_sample(stakes, eligible, self.duel_params.k_judges, self.rng)
+        if not judges:
+            self._resolve_duel(st, ())
+            return
+        st.judges = tuple(judges)
+        for j in judges:
+            node = self.nodes[j]
+            eval_req = Request(
+                rid=f"{st.duel_id}-judge-{j}", origin=j, arrival=self.loop.now,
+                prompt_tokens=st.req.prompt_tokens + 2 * st.req.output_tokens,
+                output_tokens=64, slo_s=st.req.slo_s, is_duel_extra=True)
+            jqr = QueuedRequest(eval_req, self.loop.now, delegated=True,
+                                origin_node=st.origin)
+            jqr.duel_id = f"{st.duel_id}:judging"
+            node.enqueue(jqr)
+
+    def _on_judge_done(self, st: _DuelState) -> None:
+        st.judges_done += 1
+        if st.judges_done >= len(st.judges):
+            self._resolve_duel(st, st.judges)
+
+    def _resolve_duel(self, st: _DuelState, judges: Sequence[str]) -> None:
+        q = {nid: n.quality for nid, n in self.nodes.items()}
+        out = run_duel(st.duel_id, st.executors[0], st.executors[1], judges, q,
+                       self.duel_params, self.rng, treasury=_TREASURY)
+        self._apply_ops(out.ops, proposer=out.winner)
+        if out.winner in self.nodes:
+            self.nodes[out.winner].duel_wins += 1
+        if out.loser in self.nodes:
+            self.nodes[out.loser].duel_losses += 1
+        del self._duels[st.duel_id]
+
+    # -------------------------------------------------------- periodic tasks
+    def _rebalance_tick(self, interval: float) -> None:
+        """Re-examine overloaded queues (paper: offload once workload exceeds
+        threshold — not only at admission time)."""
+        if self._shutdown:
+            return
+        for node in self.nodes.values():
+            if not node.online:
+                continue
+            moved = 0
+            while (node.local_queue and moved < 4
+                   and node.policy.wants_offload(node.queue_len, node.n_active,
+                                                 node.profile.saturation,
+                                                 self.ledger_balance(node.id),
+                                                 self.rng)):
+                qr = node.local_queue.pop()      # youngest queued local request
+                # the request keeps its original enqueue time through the
+                # move: queue_wait must count the time already spent here
+                if self.try_offload(node, qr.req,
+                                    enqueued_at=qr.enqueue_time):
+                    moved += 1
+                else:
+                    node.local_queue.append(qr)
+                    break
+        self.loop.schedule(interval, lambda: self._rebalance_tick(interval))
+
+    def _gossip_tick(self) -> None:
+        if self._shutdown:
+            return
+        for node in self.nodes.values():
+            if not node.online:
+                continue
+            # heartbeat with a fresh load digest piggybacked on the
+            # membership record (DESIGN.md §6.2-gossip)
+            node.publish_digest(self.loop.now)
+            peers = [p for p in node.view.online_peers() if p in self.nodes]
+            if peers:
+                picks = self.rng.choice(len(peers),
+                                        size=min(self.gossip_fanout, len(peers)),
+                                        replace=False)
+                for i in picks:
+                    peer = self.nodes[peers[int(i)]]
+                    if peer.online:
+                        gossip_round(node.view, peer.view)
+                        self._count_msg("gossip", 2)    # push + pull
+            node.view.suspect_failures(self.loop.now, self.suspect_after)
+        self.loop.schedule(self.gossip_interval, self._gossip_tick)
+
+    def _restake_tick(self) -> None:
+        """Assumption 5.4: rational nodes re-stake a fraction of earnings —
+        and unstake when too illiquid to pay for offloading."""
+        if self._shutdown:
+            return
+        reserve = 5.0
+        for node in self.nodes.values():
+            if not node.online:
+                continue
+            bal = self.ledger_balance(node.id)
+            stake = self.shared_ledger.stake_of(node.id)
+            free = bal - reserve           # keep an offload reserve liquid
+            if free > 0.1:
+                amt = self.restake_fraction * free
+                self._apply_ops([CreditOp("stake", node.id, "", amt)],
+                                proposer=node.id)
+            elif bal < reserve and stake > node.policy.stake:
+                amt = min(stake - node.policy.stake, 4.0 * reserve)
+                self._apply_ops([CreditOp("unstake", node.id, "", amt)],
+                                proposer=node.id)
+        self.loop.schedule(self.restake_interval, self._restake_tick)
+
+    def _trace_tick(self, interval: float) -> None:
+        if self._shutdown:
+            return
+        for node in self.nodes.values():
+            credit = (self.ledger_balance(node.id)
+                      + self.shared_ledger.stake_of(node.id))
+            self.credit_trace.append((self.loop.now, node.id, credit))
+        self.loop.schedule(interval, lambda: self._trace_tick(interval))
+
+    # -------------------------------------------------------------- execution
+    def run(self, requests: Sequence[Request], until: float,
+            trace_interval: Optional[float] = 10.0,
+            rebalance_interval: float = 2.0, drain: bool = True
+            ) -> MetricsCollector:
+        self._shutdown = False
+        for req in requests:
+            self.loop.schedule_at(req.arrival, lambda r=req: self.submit(r))
+        if self.mode == "decentralized":
+            self.loop.schedule(self.gossip_interval, self._gossip_tick)
+            if self.restake_interval:
+                self.loop.schedule(self.restake_interval, self._restake_tick)
+            if rebalance_interval:
+                self.loop.schedule(rebalance_interval,
+                                   lambda: self._rebalance_tick(rebalance_interval))
+        if trace_interval:
+            self.loop.schedule(0.0, lambda: self._trace_tick(trace_interval))
+        self.loop.run(until=until)
+        self._shutdown = True          # periodic tasks stop rescheduling
+        if drain:
+            self.loop.run()            # let in-flight requests complete
+        return self.metrics

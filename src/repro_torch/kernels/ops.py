@@ -1,0 +1,68 @@
+"""Dispatch of the attention entry points the model calls.
+
+Port of ``repro.kernels.ops``: a CPU tensor goes to the kernel's plain
+version (``kernels.ref``), a CUDA tensor launches the hand-written CUDA
+kernel or raises -- no ``try`` falls back to the plain version, and no
+library attention stands in for a kernel.  Each kernel wrapper counts its
+launches; ``launch_counts`` reads them and ``reset_launch_counts`` zeroes
+them, so a run can show that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.paged_decode import paged_decode_cuda
+from repro_torch.kernels.ref import flash_ref, paged_decode_ref
+
+# each kernel: its launching wrapper, its CUDA source and the TPU kernel
+# (file:line of the function that reaches the Pallas call) it replaces
+KERNELS = {
+    "flash_attention": dict(
+        wrapper=flash_attention_cuda,
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:77"),
+    "paged_decode": dict(
+        wrapper=paged_decode_cuda,
+        source="src/repro_torch/kernels/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/paged_decode.py:192"),
+}
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no attention path for device {t.device}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True,
+              window: Optional[int] = None) -> torch.Tensor:
+    """Prefill attention.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D)."""
+    if _on_cuda(q):
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return flash_ref(q, k, v, causal=causal, window=window)
+
+
+def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 block_tables: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """Block-table paged decode.  q: (B, 1, H, D); pools (P, page, Hkv, D);
+    block_tables: (B, maxp) int32; lengths: (B,) int32."""
+    if _on_cuda(q):
+        return paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths)
+    return paged_decode_ref(q, k_pool, v_pool, block_tables, lengths)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k["wrapper"].launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0

@@ -1,0 +1,180 @@
+"""End-to-end decentralized serving driver on PyTorch (the paper's system).
+
+Port of ``repro.launch.serve``: spins up N WWW.Serve nodes, each backed by
+a real paged PyTorch engine; users submit requests to the hot node; the
+decentralized protocol (PoS routing, credit ledger, duels) redistributes
+them in the event-loop simulation.  The protocol's executor assignments
+are then replayed on the real engines behind the ``EngineExecutor``
+interface (DESIGN.md §6.1): all engines are pumped step by step in
+round-robin, so admissions interleave with decode as under live traffic.
+
+On the card (the default) the nodes serve the full-width model in
+bfloat16, each with its own seeded random weights; on the CPU
+(``--device cpu``) they serve the reduced float32 config the reference
+driver runs, with the kernels' plain versions::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --paged --nodes 2 --requests 8 --max-new 8
+
+Only paged engines are ported: without ``--paged`` the driver stops with
+an error, because slot engines wait for the ``flash_decode`` port.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import DuelParams, Network, Node, NodePolicy
+from repro_torch.models import registry
+from repro_torch.models.config import ModelConfig
+from repro_torch.obs import wall_now
+from repro_torch.serving import Engine, EngineExecutor, GenRequest
+from repro_torch.sim import make_profile
+from repro_torch.sim.workload import Request
+
+ParamsFn = Callable[[int, ModelConfig, torch.device], Dict]
+
+
+def require_device(device: str | torch.device) -> torch.device:
+    """The device to run on; raises when it is a card this host lacks."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
+                           f"available; pass device='cpu' to run the plain "
+                           f"versions on the CPU")
+    return dev
+
+
+def seeded_params(i: int, cfg: ModelConfig, device: torch.device) -> Dict:
+    """Node ``i``'s random weights, drawn on ``device`` from a generator
+    seeded with ``i`` (the reference seeds ``jax.random.PRNGKey(i)``)."""
+    return registry.init(cfg, torch.Generator(device).manual_seed(i), device)
+
+
+def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
+        max_new: int = 16, duel_rate: float = 0.2, seed: int = 0,
+        device: str | torch.device = "cuda",
+        params_fn: Optional[ParamsFn] = None, verbose: bool = True) -> Dict:
+    """Run the scenario and return what it produced: the protocol's
+    assignment (node -> request ids), the credit balances, every request's
+    tokens, per-node engine stats, and the replay's wall time and
+    tokens/s (the replay ends in a device synchronisation)."""
+    dev = require_device(device)
+    params_fn = params_fn or seeded_params
+    say = print if verbose else (lambda *a, **k: None)
+    say(f"spinning up {nodes} nodes serving {cfg.name} on {dev}")
+    prompt_len = 24
+    rng = np.random.default_rng(seed)
+    net = Network(mode="decentralized", seed=seed,
+                  duel=DuelParams(p_d=duel_rate, k_judges=1),
+                  init_balance=100.0)
+    executors: Dict[str, EngineExecutor] = {}
+    for i in range(nodes):
+        nid = f"node{i+1}"
+        executors[nid] = EngineExecutor(
+            Engine(cfg, params_fn(i, cfg, dev), max_batch=4, bucket=32,
+                   seed=i, paged=True))
+        executors[nid].owner = nid     # real-engine spans carry the node id
+        prof = make_profile("qwen3-8b", "RTX3090", "sglang",
+                            quality=0.4 + 0.15 * i)
+        pol = NodePolicy(offload_util_threshold=0.15,
+                         offload_queue_threshold=0, target_utilization=0.9)
+        net.add_node(Node(nid, prof, policy=pol))
+
+    # every user request goes to node1 (the hot node)
+    prompts = [rng.integers(2, cfg.vocab_size, size=prompt_len)
+               .astype(np.int32) for _ in range(requests)]
+    sim_reqs = [Request(rid=f"r{i}", origin="node1", arrival=0.01 * i,
+                        prompt_tokens=prompt_len, output_tokens=max_new,
+                        slo_s=60.0) for i in range(requests)]
+    m = net.run(sim_reqs, until=600.0)
+
+    # replay the protocol's assignments on the real engines: admit through
+    # the Executor interface, then pump all engines in round-robin
+    by_exec: Dict[str, List[int]] = {}
+    for c in m.completed:
+        if not c.is_duel_extra:
+            by_exec.setdefault(c.executor, []).append(int(c.rid[1:]))
+    say(f"protocol assigned: { {k: len(v) for k, v in by_exec.items()} }")
+    done_by_node: Dict[str, List[GenRequest]] = {nid: [] for nid in by_exec}
+    t0 = wall_now()
+    for nid, idxs in by_exec.items():
+        ex = executors[nid]
+        ex.bind(None, lambda r, st, ft, nid=nid: done_by_node[nid].append(r))
+        for i in idxs:
+            ex.admit(GenRequest(rid=f"r{i}", tokens=prompts[i],
+                                max_new=max_new))
+    busy = {nid for nid in by_exec if executors[nid].has_work()}
+    while busy:
+        for nid in sorted(busy):
+            executors[nid].step()
+        busy = {nid for nid in busy if executors[nid].has_work()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall_s = wall_now() - t0
+    total_tokens = 0
+    for nid in sorted(by_exec):
+        ex, done = executors[nid], done_by_node[nid]
+        ld, st = ex.load(), ex.engine_stats()
+        total_tokens += sum(len(r.result) for r in done)
+        say(f"  {nid}: served {len(done)} requests "
+            f"({st.decode_tokens} decode tokens in {st.decode_steps} steps; "
+            f"load: {ld.active_streams} active / {ld.queued_streams} queued, "
+            f"prefill headroom {ld.prefill_headroom:.2f}, "
+            f"decode headroom {ld.decode_headroom:.2f})")
+    balances = {n: net.ledger_balance(n) for n in net.nodes}
+    say(f"generated {total_tokens} tokens across {len(by_exec)} nodes in "
+        f"{wall_s:.2f}s wall ({total_tokens / wall_s:.1f} tok/s)")
+    say(f"sim SLO attainment: {m.slo_attainment():.3f}; "
+        f"delegation rate: {m.delegation_rate():.2f}; "
+        f"avg TTFT: {m.avg_ttft():.2f}s; "
+        f"avg queue wait: {m.avg_queue_wait():.2f}s")
+    say(f"credit balances: { {n: round(b, 1) for n, b in balances.items()} }")
+    return {
+        "assigned": {nid: [f"r{i}" for i in idxs]
+                     for nid, idxs in by_exec.items()},
+        "balances": balances,
+        "results": {r.rid: np.asarray(r.result)
+                    for done in done_by_node.values() for r in done},
+        "stats": {nid: executors[nid].engine_stats() for nid in by_exec},
+        "tokens": total_tokens,
+        "wall_s": wall_s,
+        "tok_per_s": total_tokens / wall_s if wall_s > 0 else 0.0,
+        "slo_attainment": m.slo_attainment(),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--nodes", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=24)
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--duel-rate", type=float, default=0.2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", action="store_true",
+                    help="back nodes with paged-KV engines (DESIGN.md "
+                         "§6.1, paged backend); required in this port")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda: the full-width model in bfloat16 on the "
+                         "hand-written kernels; cpu: the reduced float32 "
+                         "config on their plain versions")
+    args = ap.parse_args(argv)
+    if not args.paged:
+        ap.error("slot engines wait for the flash_decode port (ROADMAP "
+                 "Queue B row 4); pass --paged")
+    dev = require_device(args.device)
+    cfg = get_config(args.arch)
+    cfg = (cfg.replace(dtype="bfloat16") if dev.type == "cuda"
+           else cfg.smoke().replace(dtype="float32"))
+    run(cfg, nodes=args.nodes, requests=args.requests, max_new=args.max_new,
+        duel_rate=args.duel_rate, seed=args.seed, device=dev)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,83 @@
+"""Plain attention on tensors: the oracles the CUDA kernels are held to.
+
+Port of ``repro.models.attention``: the masking constant,
+``reference_attention`` (naive masked softmax over the whole sequence) and
+``decode_attention`` with per-row cache lengths.  Masked scores take the
+finite constant below, never ``-inf``: ``exp`` then underflows cleanly, a
+fully masked row averages V uniformly instead of producing NaN, and the
+kernels use the same constant so the two cannot disagree on what "masked"
+means.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_NEG_INF = -1e30
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, H, D) by repeating kv heads (GQA)."""
+    hkv = k.shape[2]
+    if hkv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // hkv, dim=2)
+
+
+def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                   window: Optional[int]) -> torch.Tensor:
+    """(Sq, Skv) boolean 'attend' mask from absolute positions."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        m &= q_pos[:, None] - k_pos[None, :] < window
+    return m
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Naive O(S^2) attention.  q: (B, Sq, H, D), k/v: (B, Skv, Hkv, D);
+    ``q_offset`` is the absolute position of q[0]."""
+    _, sq, h, d = q.shape
+    skv = k.shape[1]
+    kf = _expand_kv(k, h).float()
+    vf = _expand_kv(v, h).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / (d ** 0.5)
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    k_pos = torch.arange(skv, device=q.device)
+    mask = attention_mask(q_pos, k_pos, causal, window)
+    scores = torch.where(mask[None, None], scores,
+                         torch.full((), _NEG_INF, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return out.to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-token decode attention over a partially filled cache.
+
+    q: (B, 1, H, D); k_cache/v_cache: (B, S, Hkv, D); cache_len: () or (B,)
+    integer -- the query attends to positions < cache_len.
+    """
+    _, _, h, d = q.shape
+    s = k_cache.shape[1]
+    kf = _expand_kv(k_cache, h).float()
+    vf = _expand_kv(v_cache, h).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / (d ** 0.5)
+    pos = torch.arange(s, device=q.device)
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = pos[None, :] < lens                                  # (B|1, S)
+    if window is not None:
+        valid &= pos[None, :] >= lens - window
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full((), _NEG_INF, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return out.to(q.dtype)

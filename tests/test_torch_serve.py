@@ -1,0 +1,110 @@
+"""Port serving driver vs the reference driver, same seed, same weights.
+
+``repro_torch.launch.serve.run`` on the CPU with weights bridged from
+``jax.random`` must reproduce the reference scenario exactly: the
+protocol's assignment of requests to nodes, the credit balances, and
+every request's greedy tokens from the replay on paged engines (the
+reference replay is ``repro.core.Network.run`` plus ``EngineExecutor``s,
+as ``repro.launch.serve`` drives them).
+"""
+
+from typing import Dict, List
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.core import DuelParams, Network, Node, NodePolicy
+from repro.models import registry as jregistry
+from repro.serving import Engine, EngineExecutor, GenRequest
+from repro.sim import make_profile
+from repro.sim.workload import Request
+from repro_torch.configs import get_config
+from repro_torch.launch import serve
+from repro_torch.models import bridge
+
+NODES, REQUESTS, MAX_NEW, SEED, PROMPT = 2, 6, 6, 0, 24
+
+
+def _jax_params(i, cfg):
+    return jregistry.init(jax.random.PRNGKey(i), cfg)
+
+
+def _reference_run(cfg) -> Dict:
+    """The reference driver's scenario (``repro.launch.serve.main`` with
+    ``--paged``), returning what it prints as data."""
+    rng = np.random.default_rng(SEED)
+    net = Network(mode="decentralized", seed=SEED,
+                  duel=DuelParams(p_d=0.2, k_judges=1), init_balance=100.0)
+    executors = {}
+    for i in range(NODES):
+        nid = f"node{i+1}"
+        executors[nid] = EngineExecutor(Engine(
+            cfg, _jax_params(i, cfg), max_batch=4, bucket=32, seed=i,
+            paged=True))
+        net.add_node(Node(nid, make_profile("qwen3-8b", "RTX3090", "sglang",
+                                            quality=0.4 + 0.15 * i),
+                          policy=NodePolicy(offload_util_threshold=0.15,
+                                            offload_queue_threshold=0,
+                                            target_utilization=0.9)))
+    prompts = [rng.integers(2, cfg.vocab_size, size=PROMPT).astype(np.int32)
+               for _ in range(REQUESTS)]
+    m = net.run([Request(rid=f"r{i}", origin="node1", arrival=0.01 * i,
+                         prompt_tokens=PROMPT, output_tokens=MAX_NEW,
+                         slo_s=60.0) for i in range(REQUESTS)], until=600.0)
+    by_exec: Dict[str, List[int]] = {}
+    for c in m.completed:
+        if not c.is_duel_extra:
+            by_exec.setdefault(c.executor, []).append(int(c.rid[1:]))
+    done: List[GenRequest] = []
+    for nid, idxs in by_exec.items():
+        ex = executors[nid]
+        ex.bind(None, lambda r, st, ft: done.append(r))
+        for i in idxs:
+            ex.admit(GenRequest(rid=f"r{i}", tokens=prompts[i],
+                                max_new=MAX_NEW))
+    busy = {nid for nid in by_exec if executors[nid].has_work()}
+    while busy:
+        for nid in sorted(busy):
+            executors[nid].step()
+        busy = {nid for nid in busy if executors[nid].has_work()}
+    return {"assigned": {nid: [f"r{i}" for i in idxs]
+                         for nid, idxs in by_exec.items()},
+            "balances": {n: net.ledger_balance(n) for n in net.nodes},
+            "results": {r.rid: np.asarray(r.result) for r in done},
+            "slo_attainment": m.slo_attainment()}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    torch.set_num_threads(2)
+    cfg_j = jax_get_config("qwen3-8b").smoke().replace(dtype="float32")
+    cfg_t = get_config("qwen3-8b").smoke().replace(dtype="float32")
+
+    def params_fn(i, cfg, device):
+        tree = jax.tree_util.tree_map(np.asarray, _jax_params(i, cfg_j))
+        return bridge.params_from_jax(tree, cfg, device)
+
+    port = serve.run(cfg_t, nodes=NODES, requests=REQUESTS, max_new=MAX_NEW,
+                     seed=SEED, device="cpu",
+                     params_fn=params_fn, verbose=False)
+    return _reference_run(cfg_j), port
+
+
+def test_same_protocol_assignment_and_balances(runs):
+    ref, port = runs
+    assert port["assigned"] == ref["assigned"]
+    assert port["balances"] == ref["balances"]
+    assert port["slo_attainment"] == ref["slo_attainment"]
+    assert sum(len(v) for v in port["assigned"].values()) == REQUESTS
+
+
+def test_same_tokens_for_every_request(runs):
+    ref, port = runs
+    assert port["results"].keys() == ref["results"].keys()
+    for rid, toks in ref["results"].items():
+        np.testing.assert_array_equal(port["results"][rid], toks,
+                                      err_msg=rid)
+    assert port["tokens"] == sum(len(t) for t in ref["results"].values())
