@@ -23,20 +23,31 @@ Phases, each of which raises (exit code != 0) when it fails:
    full-width qwen3-8b (36 layers, bfloat16, random weights seeded per
    node); every request must return tokens and both kernels must have
    launched.  The launch counts are zeroed just before this run and read
-   just after it.
+   just after it, and the shapes, block tables and lengths the run hands
+   each kernel are recorded;
+5. each kernel against its plain version again, at the shapes the main
+   path gave it: the most frequent prefill shape, and the decode step of
+   median attended length with that step's own block table and lengths.
+
+Times (``ms``, ``plain_ms``, ``library_ms``) are device time per call from
+``torch.profiler`` over repeated calls on the same inputs (warm L2);
+``call_ms`` is the kernel wrapper's time per call from CUDA events around
+back-to-back calls, which is the host's call rate where that is slower.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with,
 per kernel: its source, the TPU kernel it replaces, its launches on the
-main path, and its error and times at the main path's shapes beside the
-least time the card could take (``bound_ms``: the larger of the bytes it
-must move over 3.35 TB/s and the operations it must do over the card's
-peak for their type).  The last line is ``{"ok": true, "device": ...}``.
-Without a CUDA card, or outside a checkout of the repository, the script
-exits with an error before printing any result.
+main path, and its error and times at the main path's shapes (phase 5)
+beside the least time the card could take (``bound_ms``: the larger of
+the bytes it must move over 3.35 TB/s and the operations it must do over
+the card's peak for their type).  The last line is
+``{"ok": true, "device": ...}``.  Without a CUDA card, or outside a
+checkout of the repository, the script exits with an error before
+printing any result.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import pathlib
 import subprocess
@@ -57,8 +68,10 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
-def timeit(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call from CUDA events around ``iters`` calls."""
+def call_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call from CUDA events around ``iters``
+    back-to-back calls: the device time or the host's call rate, whichever
+    is slower."""
     import torch
     for _ in range(warmup):
         fn()
@@ -73,7 +86,48 @@ def timeit(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-# ------------------------------------------------------------ phase 2
+def device_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call: the summed duration of the device
+    activity ``torch.profiler`` records over ``iters`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler recorded no device activity")
+    return us / iters / 1e3
+
+
+def timings(kernel, plain, library, iters: int) -> dict:
+    slow = max(3, iters // 5)             # the plain version is slow
+    return dict(ms=device_ms(kernel, iters), call_ms=call_ms(kernel, iters),
+                plain_ms=device_ms(plain, slow),
+                library_ms=device_ms(library, iters))
+
+
+def bound(nbytes: float, flops: float, dt: str) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check(name, got, want, dt) -> float:
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    if not (torch.isfinite(got.float()).all() and err <= TOL[dt]):
+        raise AssertionError(f"{name} {dt}: max_err {err} > {TOL[dt]}")
+    return err
+
+
+# ------------------------------------------------------------ phases 2, 5
 def prefill_case(name, b, s, dt, *, window=None, causal=True, iters=50):
     import torch
     import torch.nn.functional as F
@@ -85,23 +139,20 @@ def prefill_case(name, b, s, dt, *, window=None, causal=True, iters=50):
                for shape in ((b, s, H, D), (b, s, HKV, D), (b, s, HKV, D)))
     got = flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    want = flash_ref(q, k, v, causal=causal, window=window)
-    err = (got.float() - want.float()).abs().max().item()
-    if not (torch.isfinite(got.float()).all() and err <= TOL[dt]):
-        raise AssertionError(f"prefill {name} {dt}: max_err {err} > {TOL[dt]}")
+    err = check(f"prefill {name}", got,
+                flash_ref(q, k, v, causal=causal, window=window), dt)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     pos = torch.arange(s, device="cuda")
     mask = None
     if window is not None:
         mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
                                                  < window)
-    ms = timeit(lambda: flash_attention_cuda(q, k, v, causal=causal,
-                                             window=window), iters)
-    plain_ms = timeit(lambda: flash_ref(q, k, v, causal=causal,
-                                        window=window), max(3, iters // 5))
-    lib_ms = timeit(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-        enable_gqa=True), iters)
+    t = timings(
+        lambda: flash_attention_cuda(q, k, v, causal=causal, window=window),
+        lambda: flash_ref(q, k, v, causal=causal, window=window),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True), iters)
     qp = torch.arange(s)
     vis = torch.ones((s, s), dtype=torch.bool)
     if causal:
@@ -113,67 +164,76 @@ def prefill_case(name, b, s, dt, *, window=None, causal=True, iters=50):
     return dict(case=name, dtype=dt, shape=f"B={b} S={s} H={H} Hkv={HKV} "
                 f"D={D}" + (f" window={window}" if window else "")
                 + ("" if causal else " non-causal"),
-                max_abs_err=err, tol=TOL[dt], ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **bound(nbytes, flops, dt))
+                max_abs_err=err, tol=TOL[dt], **t, **bound(nbytes, flops, dt))
 
 
-def paged_case(name, lengths, dt, *, iters=100):
+def fresh_tables(lengths):
+    """A block table with distinct pages per row; entries past a row's
+    allocation point at the scratch page 0."""
+    import numpy as np
+    n_row = [-(-ln // PAGE) for ln in lengths]
+    bt = np.zeros((len(lengths), max(2, max(n_row) + 1)), np.int32)
+    free = list(range(1, 1 + sum(n_row)))
+    for i, n in enumerate(n_row):
+        for j in range(n):
+            bt[i, j] = free.pop()
+    return bt
+
+
+def paged_case(name, bt, lengths, dt, *, iters=100):
+    """The paged kernel on block table ``bt`` (numpy int32 (B, maxp)) and
+    ``lengths``, over a random pool holding every page the table names."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_decode import paged_decode_cuda
     from repro_torch.kernels.ref import _gather_pages, paged_decode_ref
     dtype = getattr(torch, dt)
-    b = len(lengths)
-    n_row = [-(-ln // PAGE) for ln in lengths]
-    maxp = max(2, max(n_row) + 1)
-    n_pool = 1 + sum(n_row)
+    b, maxp = bt.shape
+    n_pool = int(bt.max()) + 1
     g = torch.Generator("cuda").manual_seed(sum(lengths) + b)
     q = torch.randn((b, 1, H, D), generator=g, device="cuda").to(dtype)
     kp, vp = (torch.randn((n_pool, PAGE, HKV, D), generator=g,
                           device="cuda").to(dtype) for _ in range(2))
-    bt = torch.zeros((b, maxp), dtype=torch.int32)
-    free = list(range(1, n_pool))
-    for i, n in enumerate(n_row):         # pad entries stay on page 0
-        for j in range(n):
-            bt[i, j] = free.pop()
-    bt = bt.cuda()
+    btc = torch.from_numpy(bt).cuda()
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    got = paged_decode_cuda(q, kp, vp, bt, ln)
+    got = paged_decode_cuda(q, kp, vp, btc, ln)
     torch.cuda.synchronize()
-    want = paged_decode_ref(q, kp, vp, bt, ln)
-    err = (got.float() - want.float()).abs().max().item()
-    if not (torch.isfinite(got.float()).all() and err <= TOL[dt]):
-        raise AssertionError(f"paged {name} {dt}: max_err {err} > {TOL[dt]}")
-    kg, vg = (_gather_pages(p, bt).transpose(1, 2).contiguous()
+    err = check(f"paged {name}", got, paged_decode_ref(q, kp, vp, btc, ln),
+                dt)
+    kg, vg = (_gather_pages(p, btc).transpose(1, 2).contiguous()
               for p in (kp, vp))
     mask = (torch.arange(maxp * PAGE, device="cuda")[None, :]
             < ln[:, None])[:, None, None, :]
     qt = q.transpose(1, 2).contiguous()
-    ms = timeit(lambda: paged_decode_cuda(q, kp, vp, bt, ln), iters)
-    plain_ms = timeit(lambda: paged_decode_ref(q, kp, vp, bt, ln),
-                      max(3, iters // 5))
-    lib_ms = timeit(lambda: F.scaled_dot_product_attention(
-        qt, kg, vg, attn_mask=mask, enable_gqa=True), iters)
-    # positions the kernel reads: a row's valid ones; a length-0 row reads
-    # its whole table to average V, as the plain version does
-    pos = sum(min(n, maxp * PAGE) if n > 0 else maxp * PAGE
-              for n in lengths)
-    kv_bytes = 2 * pos * HKV * D * q.element_size()
-    nbytes = (2 * q.numel() * q.element_size() + kv_bytes
-              + 4 * (bt.numel() + ln.numel()))
-    flops = 4.0 * pos * H * D
-    return dict(case=name, dtype=dt, shape=f"B={b} lengths="
-                f"{lengths if b <= 8 else f'{b}x{lengths[0]}'} H={H} "
-                f"Hkv={HKV} D={D} page={PAGE}", max_abs_err=err,
-                tol=TOL[dt], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+    t = timings(lambda: paged_decode_cuda(q, kp, vp, btc, ln),
+                lambda: paged_decode_ref(q, kp, vp, btc, ln),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kg, vg, attn_mask=mask, enable_gqa=True), iters)
+    # what the function needs: a live row's K and V up to its length and
+    # QK + PV on them; a length-0 row averages V over its whole table and
+    # needs no K and no QK; each row's table entries for those positions
+    cap = maxp * PAGE
+    k_pos = sum(min(n, cap) for n in lengths if n > 0)
+    v_pos = k_pos + cap * sum(1 for n in lengths if n <= 0)
+    entries = sum(-(-(min(n, cap) if n > 0 else cap) // PAGE)
+                  for n in lengths)
+    elem = q.element_size()
+    nbytes = ((2 * q.numel() + (k_pos + v_pos) * HKV * D) * elem
+              + 4 * (entries + b))
+    flops = 2.0 * H * D * (k_pos + v_pos)
+    shown = lengths if b <= 8 else f"{b}x{lengths[0]}"
+    return dict(case=name, dtype=dt, shape=f"B={b} maxp={maxp} "
+                f"lengths={shown} H={H} Hkv={HKV} D={D} page={PAGE}",
+                max_abs_err=err, tol=TOL[dt], **t,
                 **bound(nbytes, flops, dt))
 
 
-def bound(nbytes: float, flops: float, dt: str) -> dict:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dt] * 1e3
-    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+def show(name, r) -> None:
+    log(f"  {name:15s} {r['case']:10s} {r['dtype']:8s} "
+        f"max_err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} ms "
+        f"(call {r['call_ms']:.4f}) plain {r['plain_ms']:.4f} ms sdpa "
+        f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})  [{r['shape']}]")
 
 
 def phase_kernels():
@@ -183,25 +243,54 @@ def phase_kernels():
     cases = {"flash_attention": [], "paged_decode": []}
     for dt in ("bfloat16", "float32"):
         cases["flash_attention"] += [
-            prefill_case("main", 4, 32, dt, iters=200),
+            prefill_case("short", 4, 32, dt, iters=200),
             prefill_case("long", 1, 4096, dt, iters=10),
             prefill_case("window", 2, 512, dt, window=64),
             prefill_case("non-causal", 2, 256, dt, causal=False),
             prefill_case("s100", 2, 100, dt),
         ]
+        rider = [0, 17, 40, 33]           # a length-0 row and page-0 pads
         cases["paged_decode"] += [
-            paged_case("main", [0, 17, 40, 33], dt, iters=200),
-            paged_case("long", [4096] * 32, dt, iters=20),
+            paged_case("rider", fresh_tables(rider), rider, dt, iters=200),
+            paged_case("long", fresh_tables([4096] * 32), [4096] * 32, dt,
+                       iters=20),
         ]
     for name, rows in cases.items():
         for r in rows:
-            log(f"  {name:15s} {r['case']:10s} {r['dtype']:8s} "
-                f"max_err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} ms "
-                f"plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-                f"[{r['shape']}]")
+            show(name, r)
     log("kernel_cases " + json.dumps(cases))
     return cases
+
+
+def phase_main_shapes(seen) -> dict:
+    """Each kernel against its plain version at the shapes the main path
+    gave it (bfloat16, the serve dtype)."""
+    import numpy as np
+    shapes = collections.Counter(seen["flash_attention"])
+    (q_shape, causal, window), n = shapes.most_common(1)[0]
+    log(f"  prefill shapes on the main path (q shape, causal, window: "
+        f"calls): { {str(k): v for k, v in shapes.items()} }")
+    b, s, h, d = q_shape
+    if (h, d) != (H, D):
+        raise AssertionError(f"main path prefill q {q_shape}: not qwen3-8b")
+    pre = prefill_case("main", b, s, "bfloat16", causal=causal,
+                       window=window, iters=200)
+    steps = sorted(seen["paged_decode"], key=lambda st: int(st[1].sum()))
+    bt, lengths = steps[len(steps) // 2]
+    log(f"  {len(steps)} decode steps on the main path; attended lengths "
+        f"per step {[st[1].tolist() for st in steps]}; the median step "
+        f"has {lengths.tolist()} over a {bt.shape[1]}-page table")
+    # the engine's pool numbers pages up to its size: renumber the ones
+    # this table names densely (0 stays the scratch page)
+    ids = np.unique(np.concatenate([[0], bt.ravel()]))
+    dense_bt = np.searchsorted(ids, bt).astype(np.int32)
+    pd = paged_case("main", dense_bt, [int(x) for x in lengths], "bfloat16",
+                    iters=200)
+    show("flash_attention", pre)
+    show("paged_decode", pd)
+    log("main_cases " + json.dumps({"flash_attention": pre,
+                                    "paged_decode": pd}))
+    return {"flash_attention": pre, "paged_decode": pd}
 
 
 # ------------------------------------------------------------ phase 3
@@ -272,6 +361,33 @@ def _leaves(tree):
 
 
 # ------------------------------------------------------------ phase 4
+def recording_ops(ops, seen):
+    """Wrap ``ops.attention`` / ``ops.paged_decode`` (the calls the model
+    makes) so that each call also notes what it was given: the prefill's
+    (q shape, causal, window), and once per decode step (one lengths tensor
+    serves all layers) a device copy of its block table and lengths.
+    Returns a function that puts the originals back."""
+    attention, paged_decode = ops.attention, ops.paged_decode
+    last = [None]
+
+    def att(q, k, v, *, causal=True, window=None):
+        seen["flash_attention"].append((tuple(q.shape), causal, window))
+        return attention(q, k, v, causal=causal, window=window)
+
+    def paged(q, k_pool, v_pool, block_tables, lengths):
+        if lengths is not last[0]:
+            last[0] = lengths
+            seen["paged_decode"].append((block_tables.clone(),
+                                         lengths.clone()))
+        return paged_decode(q, k_pool, v_pool, block_tables, lengths)
+
+    ops.attention, ops.paged_decode = att, paged
+
+    def restore():
+        ops.attention, ops.paged_decode = attention, paged_decode
+    return restore
+
+
 def phase_serve():
     import torch
     from repro_torch.configs import get_config
@@ -282,9 +398,16 @@ def phase_serve():
     params = [serve.seeded_params(i, cfg, dev) for i in range(2)]
     kw = dict(nodes=2, requests=8, max_new=8, seed=0, device=dev,
               params_fn=lambda i, c, d: params[i])
-    ops.reset_launch_counts()
-    out = serve.run(cfg, **kw)
-    launches = ops.launch_counts()
+    seen = {"flash_attention": [], "paged_decode": []}
+    restore = recording_ops(ops, seen)
+    try:
+        ops.reset_launch_counts()
+        out = serve.run(cfg, **kw)
+        launches = ops.launch_counts()
+    finally:
+        restore()
+    seen["paged_decode"] = [(bt.cpu().numpy(), ln.cpu().numpy())
+                            for bt, ln in seen["paged_decode"]]
     log(f"  launches on the main path: {launches}")
     if set(out["results"]) != {f"r{i}" for i in range(8)}:
         raise AssertionError(f"requests without a result: {out['results']}")
@@ -318,7 +441,7 @@ def phase_serve():
         tok_per_s=out["tok_per_s"], wall_s=out["wall_s"], **profile)))
     del params
     torch.cuda.empty_cache()
-    return out, launches
+    return out, launches, seen
 
 
 def profile_serve(serve, cfg, kw, first) -> dict:
@@ -365,23 +488,23 @@ def main() -> int:
     log(f"[1] built {list(_build.SOURCES)} in {build_s:.1f}s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     log("[2] kernels vs their plain versions")
-    cases = phase_kernels()
+    phase_kernels()
     log("[3] model consistency: paged decode vs fresh prefill")
     phase_consistency(n_layers=36)
     log("[4] serve (main path)")
-    _, launches = phase_serve()
+    _, launches, seen = phase_serve()
+    log("[5] kernels vs their plain versions at the main path's shapes")
+    main_cases = phase_main_shapes(seen)
     kernels = []
     for name, meta in ops.KERNELS.items():
-        main_case = next(r for r in cases[name]
-                         if r["case"] == "main" and r["dtype"] == "bfloat16")
+        r = main_cases[name]
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
-            max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
-            plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
-            bound_by=main_case["bound_by"],
-            library_ms=main_case["library_ms"], shape=main_case["shape"],
-            dtype="bfloat16"))
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], call_ms=r["call_ms"],
+            shape=r["shape"], dtype=r["dtype"]))
     log(f"total {time.perf_counter() - t_all:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -17,7 +17,7 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Callable, Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/_build.py -> the checkout root is three levels up
@@ -28,6 +28,7 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -84,13 +85,17 @@ def build(names: Iterable[str] = SOURCES, *,
 
 def function(name: str, symbol: str,
              argtypes: Sequence) -> Callable[..., int]:
-    """The C function ``symbol`` of library ``name``, built if needed, with
-    its argument types declared (each pointer and the stream as
-    ``c_void_p``, so ctypes never truncates them to 32 bits)."""
-    if name not in _loaded:
-        build([name])
-        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
-    fn = getattr(_loaded[name], symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    """The C function ``symbol`` of library ``name``, built and resolved on
+    the first call and taken from a cache after that, with its argument
+    types declared (each pointer and the stream as ``c_void_p``, so ctypes
+    never truncates them to 32 bits)."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        if name not in _loaded:
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+        fn = getattr(_loaded[name], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
     return fn

@@ -43,6 +43,32 @@ template <> struct Elem<__nv_bfloat16> {
   __device__ static __forceinline__ __nv_bfloat16 store(float x) { return __float2bfloat16(x); }
 };
 
+// The one head width the kernels are built for: qwen3-8b's, the only model
+// the port serves so far.
+constexpr int kHeadDim = 128;
+constexpr int kMaxDevices = 64;
+
+// Make `device` current, without a cudaSetDevice when it already is.
+inline cudaError_t use_device(int device) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return e;
+  return cur == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+// Raise a kernel's dynamic shared-memory cap to `bytes` on `device`, once per
+// device and kernel (the caller keeps `done`, one flag per device): the
+// attribute persists, so later launches skip the call.
+template <typename Kernel>
+cudaError_t allow_smem_once(Kernel kernel, size_t bytes, int device, bool* done) {
+  if (done[device]) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) done[device] = true;
+  return e;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));

@@ -30,6 +30,7 @@
 //   A row that sees no key at all (only possible when Sq > Skv with a
 //   window) makes the block visit every tile, so it averages all of V as
 //   the plain version does.
+// * Built for head width 128 (kHeadDim) in fp32 and bf16.
 
 #include <stdint.h>
 
@@ -212,10 +213,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-           int H, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+           int H, int Hkv, int causal, int window, float scale, int device,
+           cudaStream_t stream) {
+  static bool smem_allowed[kMaxDevices] = {};
   const size_t smem = flash_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = allow_smem_once(flash_fwd_kernel<T, D>, smem, device, smem_allowed);
   if (e != cudaSuccess) return (int)e;
   const int rep = H / Hkv;
   const dim3 grid((Sq * rep + kRows - 1) / kRows, Hkv, B);
@@ -228,27 +230,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 }  // namespace
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
-// Returns the CUDA error of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  D must be kHeadDim.  window <= 0 means
+// no window.  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    int dtype, int B, int Sq, int Skv, int H, int Hkv, int D,
                                    int causal, int window, float scale, int device,
                                    void* stream) {
   using namespace repro_torch;
-  cudaError_t e = cudaSetDevice(device);
+  if (D != kHeadDim) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_CASE(T, DD) \
-  return launch<T, DD>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, scale, st)
-  if (dtype == 0) {
-    if (D == 32) REPRO_FLASH_CASE(float, 32);
-    if (D == 64) REPRO_FLASH_CASE(float, 64);
-    if (D == 128) REPRO_FLASH_CASE(float, 128);
-  } else if (dtype == 1) {
-    if (D == 32) REPRO_FLASH_CASE(__nv_bfloat16, 32);
-    if (D == 64) REPRO_FLASH_CASE(__nv_bfloat16, 64);
-    if (D == 128) REPRO_FLASH_CASE(__nv_bfloat16, 128);
-  }
-#undef REPRO_FLASH_CASE
+  if (dtype == 0)
+    return launch<float, kHeadDim>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, scale,
+                                   device, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kHeadDim>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window,
+                                           scale, device, st);
   return (int)cudaErrorInvalidValue;
 }

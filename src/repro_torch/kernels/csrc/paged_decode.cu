@@ -25,8 +25,10 @@
 // * Masking matches the plain version: positions past lengths[b] take no
 //   weight; a row of length 0 has no valid key and averages V over every
 //   position of its table (maxp * page, pad entries on the scratch page 0
-//   included), as the gather-then-softmax plain version does.  l is
-//   floored at 1e-30.
+//   included), as the gather-then-softmax plain version does; it reads V
+//   only.  l is floored at 1e-30.
+// * Built for head width 128 (kHeadDim) in fp32 and bf16, and up to 16
+//   query heads per kv head.
 // * A table entry outside [0, P) would read outside the pool: the kernel
 //   checks every entry it reads and traps (a device-side assert) instead.
 // * Splitting a long row across blocks (flash-decoding) is later work.
@@ -106,10 +108,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         const int phys = bt[lp];
         if (phys < 0 || phys >= P) __trap();
         const size_t off = (((size_t)phys * page + (pos - lp * page)) * Hkv + g) * D + c;
-        float tmp[kVec];
-        Elem<T>::load_vec(k_pool + off, tmp);
+        if (!dead) {                       // a length-0 row scores no key
+          float tmp[kVec];
+          Elem<T>::load_vec(k_pool + off, tmp);
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) dk[j] = tmp[j];
+          for (int j = 0; j < kVec; ++j) dk[j] = tmp[j];
+        }
         Elem<T>::load_vec(v_pool + off, dv);
       } else {
 #pragma unroll
@@ -179,12 +183,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 template <typename T, int D>
 int launch(const void* q, const void* k_pool, const void* v_pool, const int* block_tables,
            const int* lengths, void* out, int B, int H, int Hkv, int page, int maxp, int P,
-           float scale, cudaStream_t stream) {
-  const int rep = H / Hkv;
-  const size_t smem = paged_smem_bytes<D>(rep);
-  cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           float scale, int device, cudaStream_t stream) {
+  static bool smem_allowed[kMaxDevices] = {};
+  const cudaError_t e = allow_smem_once(paged_decode_kernel<T, D>,
+                                        paged_smem_bytes<D>(kMaxRep), device, smem_allowed);
   if (e != cudaSuccess) return (int)e;
+  const size_t smem = paged_smem_bytes<D>(H / Hkv);
   const dim3 grid(Hkv, B);
   paged_decode_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
@@ -195,30 +199,26 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const int* blo
 }  // namespace
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16.  block_tables (B, maxp) and lengths (B,)
-// are int32.  Returns the CUDA error of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  D must be kHeadDim.  block_tables
+// (B, maxp) and lengths (B,) are int32.  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int paged_decode_fwd(const void* q, const void* k_pool, const void* v_pool,
                                 const void* block_tables, const void* lengths, void* out,
                                 int dtype, int B, int H, int Hkv, int D, int page, int maxp,
                                 int P, float scale, int device, void* stream) {
   using namespace repro_torch;
-  if (H % Hkv != 0 || H / Hkv > kMaxRep || page < 1 || maxp < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  if (D != kHeadDim || H % Hkv != 0 || H / Hkv > kMaxRep || page < 1 || maxp < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_tables);
   const int* ln = static_cast<const int*>(lengths);
-#define REPRO_PAGED_CASE(T, DD) \
-  return launch<T, DD>(q, k_pool, v_pool, bt, ln, out, B, H, Hkv, page, maxp, P, scale, st)
-  if (dtype == 0) {
-    if (D == 32) REPRO_PAGED_CASE(float, 32);
-    if (D == 64) REPRO_PAGED_CASE(float, 64);
-    if (D == 128) REPRO_PAGED_CASE(float, 128);
-  } else if (dtype == 1) {
-    if (D == 32) REPRO_PAGED_CASE(__nv_bfloat16, 32);
-    if (D == 64) REPRO_PAGED_CASE(__nv_bfloat16, 64);
-    if (D == 128) REPRO_PAGED_CASE(__nv_bfloat16, 128);
-  }
-#undef REPRO_PAGED_CASE
+  if (dtype == 0)
+    return launch<float, kHeadDim>(q, k_pool, v_pool, bt, ln, out, B, H, Hkv, page, maxp, P,
+                                   scale, device, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kHeadDim>(q, k_pool, v_pool, bt, ln, out, B, H, Hkv, page,
+                                           maxp, P, scale, device, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIM = 128          # the one width the kernels are built for (qwen3-8b)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -32,12 +32,11 @@ def check_cuda_inputs(tensors, dtype: torch.dtype) -> None:
     if dtype not in DTYPES:
         raise TypeError(f"kernel takes {list(DTYPES)}, got {dtype}")
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"inputs on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError("kernel inputs must be 16-byte aligned")
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"kernel inputs must be contiguous, 16-byte aligned and on "
+                f"one device: got {t.device} (inputs on {dev}), contiguous "
+                f"{t.is_contiguous()}, address {t.data_ptr():#x}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -52,8 +51,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     skv, hkv = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or h % hkv or sq < 1 or skv < 1:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if d != HEAD_DIM:
+        raise ValueError(f"head_dim {d}: the kernel is built for {HEAD_DIM}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k, v must share one dtype")
     if window is not None and window < 1:

@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
+from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIM,
                                                  check_cuda_inputs)
 
 MAX_REP = 16            # query heads per kv head (kMaxRep in the source)
@@ -44,8 +44,8 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if k_pool.shape[3] != d or h % hkv or h // hkv > MAX_REP:
         raise ValueError(f"bad heads: q{tuple(q.shape)} "
                          f"pool{tuple(k_pool.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if d != HEAD_DIM:
+        raise ValueError(f"head_dim {d}: the kernel is built for {HEAD_DIM}")
     if block_tables.ndim != 2 or block_tables.shape[0] != b \
             or block_tables.shape[1] < 1 or tuple(lengths.shape) != (b,):
         raise ValueError(f"bad tables{tuple(block_tables.shape)} / "

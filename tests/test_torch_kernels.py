@@ -155,11 +155,14 @@ def cuda():
     return torch.device("cuda")
 
 
-GPU_PREFILL = PREFILL_CASES + [
-    (4, 32, 32, 8, 128, None, True, 0, 0),     # qwen3-8b serve prefill
-    (1, 1000, 32, 8, 128, None, True, 0, 0),
-    (2, 100, 32, 8, 128, 64, True, 0, 0),
-    (2, 77, 32, 8, 128, None, False, 0, 0),
+# the kernels are built for head width 128 only (qwen3-8b's): the card cases
+# take the CPU cases' head ratios, lengths and masks at that width
+GPU_PREFILL = [(b, s, h, hkv, 128, win, causal)
+               for b, s, h, hkv, _, win, causal, _, _ in PREFILL_CASES] + [
+    (4, 32, 32, 8, 128, None, True),           # qwen3-8b serve prefill
+    (1, 1000, 32, 8, 128, None, True),
+    (2, 100, 32, 8, 128, 64, True),
+    (2, 77, 32, 8, 128, None, False),
 ]
 
 
@@ -167,7 +170,7 @@ GPU_PREFILL = PREFILL_CASES + [
 @pytest.mark.parametrize("case", GPU_PREFILL)
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain_on_card(cuda, case, dt):
-    b, s, h, hkv, d, win, causal = case[:7]
+    b, s, h, hkv, d, win, causal = case
     q, k, v = (_t(x, dt, cuda) for x in _qkv(sum(case[:5]), b, s, s, h,
                                               hkv, d))
     before = ops.launch_counts()["flash_attention"]
@@ -185,8 +188,8 @@ def test_flash_kernel_matches_plain_on_card(cuda, case, dt):
 def test_flash_kernel_rows_without_keys_average_v(cuda, dt):
     """Sq > Skv with a window leaves late rows no visible key: they average
     all of V, as the plain version does, instead of turning NaN."""
-    q, _, _ = _qkv(5, 1, 200, 200, 8, 2, 64)
-    _, k, v = _qkv(6, 1, 40, 40, 8, 2, 64)
+    q, _, _ = _qkv(5, 1, 200, 200, 8, 2, 128)
+    _, k, v = _qkv(6, 1, 40, 40, 8, 2, 128)
     q, k, v = (_t(x, dt, cuda) for x in (q, k, v))
     got = ops.attention(q, k, v, causal=True, window=16)
     want = flash_ref(q, k, v, causal=True, window=16)
@@ -194,8 +197,10 @@ def test_flash_kernel_rows_without_keys_average_v(cuda, dt):
                                rtol=1e-2)
 
 
-GPU_PAGED = PAGED_CASES + [
-    (4, 32, 8, 128, 16, (0, 17, 40, 33)),      # qwen3-8b serve decode
+GPU_PAGED = [(b, h, hkv, 128, page, lengths)
+             for b, h, hkv, _, page, lengths in PAGED_CASES] + [
+    (4, 32, 8, 128, 16, (25, 1, 32, 29)),      # qwen3-8b serve decode
+    (4, 32, 8, 128, 16, (0, 17, 40, 33)),
     (3, 32, 8, 128, 16, (4096, 1, 700)),
     (2, 32, 2, 128, 16, (100, 0)),            # 16 heads per kv head
 ]
@@ -221,12 +226,12 @@ def test_paged_kernel_matches_plain_on_card(cuda, case, dt):
 
 @pytest.mark.gpu
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
-    q = torch.zeros((1, 8, 4, 48), device=cuda)
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ops.attention(q, q[:, :, :2], q[:, :, :2])
-    q = torch.zeros((1, 8, 4, 64), device=cuda, dtype=torch.float16)
+    q = torch.zeros((1, 8, 4, 128), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         ops.attention(q, q, q)
-    q = torch.zeros((1, 8, 4, 64), device=cuda).transpose(1, 2)
+    q = torch.zeros((1, 8, 4, 128), device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ops.attention(q, q, q)
