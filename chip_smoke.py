@@ -5,44 +5,53 @@
 
 Phases, each of which raises (exit code != 0) when it fails:
 
-1. print the card's name and power limit (``nvidia-smi``) and build both
-   CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
-   started together);
+1. print the card's name and power limit (``nvidia-smi``) and build the
+   four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
+   each, started together);
 2. hold each kernel against its plain PyTorch version on the card at
-   qwen3-8b widths (H=32, Hkv=8, D=128, page 16) in bfloat16 and float32
-   with TF32 off -- absolute tolerance 1e-4 (float32: the card sums in
-   another order) and 2e-2 (bfloat16) -- and time the kernel, the plain
-   version and, as a yardstick the port never calls, one
-   ``scaled_dot_product_attention`` on the same (gathered) inputs;
-3. model consistency at full width: qwen3-8b, all 36 layers, float32, one
-   paged engine serving two requests; the logits of every paged decode
-   step must match a fresh prefill over the same tokens within
-   1e-3 * max|logit|, and the greedy tokens must be identical;
-4. the main path: ``repro_torch.launch.serve.run`` -- the decentralized
-   protocol assigns 8 requests, two nodes serve them on paged engines with
+   qwen3-8b widths (H=32, Hkv=8, D=128, page 16) and, for the prefill and
+   contiguous decode kernels, at the speculative draft's (H=2, Hkv=1,
+   D=64), in bfloat16 and float32 with TF32 off -- absolute tolerance 1e-4
+   (float32: the card sums in another order) and 2e-2 (bfloat16) -- and
+   time the kernel, the plain version and, as a yardstick the port never
+   calls, one ``scaled_dot_product_attention`` on the same (for paged
+   kernels: gathered) inputs with a length mask;
+3. model consistency at full width: qwen3-8b, all 36 layers, float32.  A
+   paged engine serves two requests, and the logits of every paged decode
+   step must match a fresh prefill over the same tokens within 1e-3 *
+   max|logit|; a slot engine and a speculative engine whose draft is the
+   target itself (every draft accepted) serve the same requests, their
+   slot-decode and verify logits (every one of the K positions) held to
+   fresh prefills the same way, and all three engines' greedy tokens must
+   be identical;
+4. the main paths, through ``repro_torch.launch.serve.run`` -- the
+   decentralized protocol assigns 8 requests and two nodes serve them with
    full-width qwen3-8b (36 layers, bfloat16, random weights seeded per
-   node); every request must return tokens and both kernels must have
-   launched.  The launch counts are zeroed just before this run and read
-   just after it, and the shapes, block tables and lengths the run hands
-   each kernel are recorded;
-5. each kernel against its plain version again, at the shapes the main
-   path gave it: the most frequent prefill shape, and the decode step of
-   median attended length with that step's own block table and lengths.
+   node): [4] on paged engines, [4b] on slot engines (the driver's
+   default), [4c] on speculative paged engines with the ``cfg.draft()``
+   model, spec_k 4.  Every request must return tokens, and every kernel of
+   the phase's path must have launched: the launch counts are zeroed just
+   before each run and read just after it, and the shapes, tables and
+   lengths the run hands each kernel are recorded.  Each phase reruns its
+   scenario under ``torch.profiler`` for the device's busy share;
+5. each kernel against its plain version again, at the shapes its serve
+   phase gave it: the most frequent prefill shape, and the decode or verify
+   step of median attended length with that step's own table and lengths.
 
 Times (``ms``, ``plain_ms``, ``library_ms``) are device time per call from
 ``torch.profiler`` over repeated calls on the same inputs (warm L2);
 ``call_ms`` is the kernel wrapper's time per call from CUDA events around
 back-to-back calls, which is the host's call rate where that is slower.
 
-The line before the last is one JSON object ``{"kernels": [...]}`` with,
-per kernel: its source, the TPU kernel it replaces, its launches on the
-main path, and its error and times at the main path's shapes (phase 5)
-beside the least time the card could take (``bound_ms``: the larger of
-the bytes it must move over 3.35 TB/s and the operations it must do over
-the card's peak for their type).  The last line is
-``{"ok": true, "device": ...}``.  Without a CUDA card, or outside a
-checkout of the repository, the script exits with an error before
-printing any result.
+The line before the last is one JSON object ``{"kernels": [...]}`` with one
+entry per kernel and head width built: its source, the TPU kernel it
+replaces, the serve phase it was measured in, its launches there, and its
+error and times at that phase's shapes (phase 5) beside the least time the
+card could take (``bound_ms``: the larger of the bytes it must move over
+3.35 TB/s and the operations it must do over the card's peak for their
+type).  The last line is ``{"ok": true, "device": ...}``.  Without a CUDA
+card, or outside a checkout of the repository, the script exits with an
+error before printing any result.
 """
 
 from __future__ import annotations
@@ -62,6 +71,25 @@ PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core rate
               "float32": 67e12}           # fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 H, HKV, D, PAGE = 32, 8, 128, 16          # qwen3-8b attention widths
+TARGET, DRAFT = (H, HKV, D), (2, 1, 64)   # (H, Hkv, D); the draft: cfg.draft()
+SPEC_K = 4
+
+# the kernels line: one entry per kernel and head width built, each read in
+# the serve phase whose path runs it
+ENTRIES = {  # entry: (kernel in ops.KERNELS, head width, serve phase)
+    "flash_attention": ("flash_attention", 128, "4"),
+    "paged_decode": ("paged_decode", 128, "4"),
+    "flash_decode": ("flash_decode", 128, "4b"),
+    "flash_attention_d64": ("flash_attention", 64, "4c"),
+    "flash_decode_d64": ("flash_decode", 64, "4c"),
+    "paged_verify": ("paged_verify", 128, "4c"),
+}
+PHASE_MODE = {"4": "paged", "4b": "slot", "4c": "spec"}
+# (kernel, head width) pairs each serve phase's path must launch
+PATHS = {"4": {("flash_attention", 128), ("paged_decode", 128)},
+         "4b": {("flash_attention", 128), ("flash_decode", 128)},
+         "4c": {("flash_attention", 128), ("flash_attention", 64),
+                ("flash_decode", 64), ("paged_verify", 128)}}
 
 
 def log(*a) -> None:
@@ -127,16 +155,22 @@ def check(name, got, want, dt) -> float:
     return err
 
 
+def _shown(lengths):
+    return lengths if len(lengths) <= 8 else f"{len(lengths)}x{lengths[0]}"
+
+
 # ------------------------------------------------------------ phases 2, 5
-def prefill_case(name, b, s, dt, *, window=None, causal=True, iters=50):
+def prefill_case(name, b, s, dt, *, heads=TARGET, window=None, causal=True,
+                 iters=50):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ref import flash_ref
+    h, hkv, d = heads
     dtype = getattr(torch, dt)
-    g = torch.Generator("cuda").manual_seed(b * 1000 + s)
+    g = torch.Generator("cuda").manual_seed(b * 1000 + s + d)
     q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-               for shape in ((b, s, H, D), (b, s, HKV, D), (b, s, HKV, D)))
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
     got = flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err = check(f"prefill {name}", got,
@@ -159,20 +193,71 @@ def prefill_case(name, b, s, dt, *, window=None, causal=True, iters=50):
         vis &= qp[:, None] >= qp[None, :]
     if window is not None:
         vis &= qp[:, None] - qp[None, :] < window
-    flops = 4.0 * b * H * D * int(vis.sum())
+    flops = 4.0 * b * h * d * int(vis.sum())
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    return dict(case=name, dtype=dt, shape=f"B={b} S={s} H={H} Hkv={HKV} "
-                f"D={D}" + (f" window={window}" if window else "")
+    return dict(case=name, dtype=dt, shape=f"B={b} S={s} H={h} Hkv={hkv} "
+                f"D={d}" + (f" window={window}" if window else "")
                 + ("" if causal else " non-causal"),
                 max_abs_err=err, tol=TOL[dt], **t, **bound(nbytes, flops, dt))
 
 
-def fresh_tables(lengths):
-    """A block table with distinct pages per row; entries past a row's
+def decode_case(name, s, lengths, dt, *, heads=TARGET, window=None,
+                iters=100):
+    """The contiguous decode kernel on caches of ``s`` positions with
+    per-row ``lengths``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+    from repro_torch.kernels.ref import decode_ref
+    h, hkv, d = heads
+    b = len(lengths)
+    dtype = getattr(torch, dt)
+    g = torch.Generator("cuda").manual_seed(sum(lengths) + s + d)
+    q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(dtype)
+    kc, vc = (torch.randn((b, s, hkv, d), generator=g,
+                          device="cuda").to(dtype) for _ in range(2))
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = flash_decode_cuda(q, kc, vc, ln, window=window)
+    torch.cuda.synchronize()
+    err = check(f"decode {name}", got,
+                decode_ref(q, kc, vc, ln, window=window), dt)
+    pos = torch.arange(s, device="cuda")[None, :]
+    valid = pos < ln[:, None]
+    if window is not None:
+        valid &= pos >= ln[:, None] - window
+    mask = valid[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+    t = timings(lambda: flash_decode_cuda(q, kc, vc, ln, window=window),
+                lambda: decode_ref(q, kc, vc, ln, window=window),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+    # what the function needs: a row's K and V over its visible positions
+    # and QK + PV on them; a row that sees no key averages V over all S
+    # positions and needs no K and no QK
+    k_pos = v_pos = 0
+    for n in lengths:
+        lo = max(0, n - window) if window is not None else 0
+        seen = max(0, min(n, s) - lo)
+        k_pos += seen
+        v_pos += seen if seen else s
+    elem = q.element_size()
+    nbytes = (2 * q.numel() + (k_pos + v_pos) * hkv * d) * elem + 4 * b
+    flops = 2.0 * h * d * (k_pos + v_pos)
+    return dict(case=name, dtype=dt, shape=f"B={b} S={s} "
+                f"lengths={_shown(lengths)} H={h} Hkv={hkv} D={d}"
+                + (f" window={window}" if window else ""),
+                max_abs_err=err, tol=TOL[dt], **t, **bound(nbytes, flops, dt))
+
+
+def fresh_tables(lengths, width=None):
+    """A block table with distinct pages per row covering ``lengths``
+    positions (cut at ``width`` columns if given); entries past a row's
     allocation point at the scratch page 0."""
     import numpy as np
     n_row = [-(-ln // PAGE) for ln in lengths]
-    bt = np.zeros((len(lengths), max(2, max(n_row) + 1)), np.int32)
+    if width is not None:
+        n_row = [min(n, width) for n in n_row]
+    bt = np.zeros((len(lengths), width or max(2, max(n_row) + 1)), np.int32)
     free = list(range(1, 1 + sum(n_row)))
     for i, n in enumerate(n_row):
         for j in range(n):
@@ -180,22 +265,30 @@ def fresh_tables(lengths):
     return bt
 
 
-def paged_case(name, bt, lengths, dt, *, iters=100):
-    """The paged kernel on block table ``bt`` (numpy int32 (B, maxp)) and
-    ``lengths``, over a random pool holding every page the table names."""
+def _pool(bt, lengths, kq, dt, seed):
+    """q (B, kq, H, D) and random pools holding every page ``bt`` names."""
     import torch
+    dtype = getattr(torch, dt)
+    g = torch.Generator("cuda").manual_seed(seed)
+    n_pool = int(bt.max()) + 1
+    q = torch.randn((bt.shape[0], kq, H, D), generator=g,
+                    device="cuda").to(dtype)
+    kp, vp = (torch.randn((n_pool, PAGE, HKV, D), generator=g,
+                          device="cuda").to(dtype) for _ in range(2))
+    return (q, kp, vp, torch.from_numpy(bt).cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def paged_case(name, bt, lengths, dt, *, iters=100):
+    """The paged decode kernel on block table ``bt`` (numpy int32
+    (B, maxp)) and ``lengths``, over a random pool holding every page the
+    table names."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_decode import paged_decode_cuda
     from repro_torch.kernels.ref import _gather_pages, paged_decode_ref
-    dtype = getattr(torch, dt)
+    import torch
     b, maxp = bt.shape
-    n_pool = int(bt.max()) + 1
-    g = torch.Generator("cuda").manual_seed(sum(lengths) + b)
-    q = torch.randn((b, 1, H, D), generator=g, device="cuda").to(dtype)
-    kp, vp = (torch.randn((n_pool, PAGE, HKV, D), generator=g,
-                          device="cuda").to(dtype) for _ in range(2))
-    btc = torch.from_numpy(bt).cuda()
-    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q, kp, vp, btc, ln = _pool(bt, lengths, 1, dt, sum(lengths) + b)
     got = paged_decode_cuda(q, kp, vp, btc, ln)
     torch.cuda.synchronize()
     err = check(f"paged {name}", got, paged_decode_ref(q, kp, vp, btc, ln),
@@ -221,18 +314,71 @@ def paged_case(name, bt, lengths, dt, *, iters=100):
     nbytes = ((2 * q.numel() + (k_pos + v_pos) * HKV * D) * elem
               + 4 * (entries + b))
     flops = 2.0 * H * D * (k_pos + v_pos)
-    shown = lengths if b <= 8 else f"{b}x{lengths[0]}"
     return dict(case=name, dtype=dt, shape=f"B={b} maxp={maxp} "
-                f"lengths={shown} H={H} Hkv={HKV} D={D} page={PAGE}",
-                max_abs_err=err, tol=TOL[dt], **t,
+                f"lengths={_shown(lengths)} H={H} Hkv={HKV} D={D} "
+                f"page={PAGE}", max_abs_err=err, tol=TOL[dt], **t,
                 **bound(nbytes, flops, dt))
 
 
+def verify_case(name, bt, lengths, kq, dt, *, iters=100):
+    """The paged verify kernel: ``kq`` query tokens per row over block
+    table ``bt`` with ``lengths`` valid positions before them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_verify import paged_verify_cuda
+    from repro_torch.kernels.ref import _gather_pages, paged_verify_ref
+    b, maxp = bt.shape
+    q, kp, vp, btc, ln = _pool(bt, lengths, kq, dt, sum(lengths) + kq)
+    got = paged_verify_cuda(q, kp, vp, btc, ln)
+    torch.cuda.synchronize()
+    err = check(f"verify {name}", got, paged_verify_ref(q, kp, vp, btc, ln),
+                dt)
+    kg, vg = (_gather_pages(p, btc).transpose(1, 2).contiguous()
+              for p in (kp, vp))
+    cap = maxp * PAGE
+    limit = ln[:, None] + torch.arange(kq, device="cuda")[None, :]
+    mask = (torch.arange(cap, device="cuda")[None, None, :]
+            <= limit[..., None])[:, None]                   # (B, 1, K, S)
+    qt = q.transpose(1, 2).contiguous()
+    t = timings(lambda: paged_verify_cuda(q, kp, vp, btc, ln),
+                lambda: paged_verify_ref(q, kp, vp, btc, ln),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kg, vg, attn_mask=mask, enable_gqa=True), iters)
+    # what the function needs: each row's K and V through its last query's
+    # bound, its table entries for them, and QK + PV of every query over
+    # the positions it sees
+    read = [min(n + kq, cap) for n in lengths]
+    seen = sum(min(n + j + 1, cap) for n in lengths for j in range(kq))
+    elem = q.element_size()
+    nbytes = ((2 * q.numel() + 2 * sum(read) * HKV * D) * elem
+              + 4 * (sum(-(-r // PAGE) for r in read) + b))
+    flops = 4.0 * H * D * seen
+    return dict(case=name, dtype=dt, shape=f"B={b} K={kq} maxp={maxp} "
+                f"lengths={_shown(lengths)} H={H} Hkv={HKV} D={D} "
+                f"page={PAGE}", max_abs_err=err, tol=TOL[dt], **t,
+                **bound(nbytes, flops, dt))
+
+
+def verify_one_token_is_decode(dt) -> float:
+    """K = 1 verify at ``lengths`` against the paged decode kernel at
+    ``lengths + 1``: the same function, two kernels."""
+    import torch
+    from repro_torch.kernels.paged_decode import paged_decode_cuda
+    from repro_torch.kernels.paged_verify import paged_verify_cuda
+    lengths = [28, 1, 40, 0]
+    q, kp, vp, btc, ln = _pool(fresh_tables([n + 1 for n in lengths]),
+                               lengths, 1, dt, 11)
+    got = paged_verify_cuda(q, kp, vp, btc, ln)
+    want = paged_decode_cuda(q, kp, vp, btc, ln + 1)
+    torch.cuda.synchronize()
+    return check("verify K=1 vs paged decode", got, want, dt)
+
+
 def show(name, r) -> None:
-    log(f"  {name:15s} {r['case']:10s} {r['dtype']:8s} "
+    log(f"  {name:19s} {r['case']:10s} {r['dtype']:8s} "
         f"max_err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} ms "
         f"(call {r['call_ms']:.4f}) plain {r['plain_ms']:.4f} ms sdpa "
-        f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+        f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
         f"({r['bound_by']})  [{r['shape']}]")
 
 
@@ -240,7 +386,7 @@ def phase_kernels():
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cases = {"flash_attention": [], "paged_decode": []}
+    cases = {name: [] for name in ENTRIES}
     for dt in ("bfloat16", "float32"):
         cases["flash_attention"] += [
             prefill_case("short", 4, 32, dt, iters=200),
@@ -249,12 +395,39 @@ def phase_kernels():
             prefill_case("non-causal", 2, 256, dt, causal=False),
             prefill_case("s100", 2, 100, dt),
         ]
+        cases["flash_attention_d64"] += [
+            prefill_case("short", 4, 32, dt, heads=DRAFT, iters=200),
+            prefill_case("long", 1, 4096, dt, heads=DRAFT, iters=10),
+        ]
         rider = [0, 17, 40, 33]           # a length-0 row and page-0 pads
         cases["paged_decode"] += [
             paged_case("rider", fresh_tables(rider), rider, dt, iters=200),
             paged_case("long", fresh_tables([4096] * 32), [4096] * 32, dt,
                        iters=20),
         ]
+        cases["flash_decode"] += [
+            decode_case("rider", 64, [25, 1, 33, 0], dt, iters=200),
+            decode_case("long", 4096, [4096] * 32, dt, iters=20),
+            decode_case("window", 4096, [4096, 3000, 100, 0] * 2, dt,
+                        window=1024, iters=20),
+        ]
+        cases["flash_decode_d64"] += [
+            decode_case("rider", 72, [25, 1, 33, 0], dt, heads=DRAFT,
+                        iters=200),
+            decode_case("long", 4096, [4096] * 32, dt, heads=DRAFT,
+                        iters=20),
+        ]
+        # a rider whose lengths + K passes its 2-page table
+        past = [30, 31, 9, 0]
+        cases["paged_verify"] += [
+            verify_case("rider", fresh_tables(past, width=2), past,
+                        SPEC_K + 1, dt, iters=200),
+            verify_case("long", fresh_tables([4096 + SPEC_K + 1] * 32),
+                        [4096] * 32, SPEC_K + 1, dt, iters=20),
+        ]
+        err = verify_one_token_is_decode(dt)
+        log(f"  paged_verify K=1 {dt}: max_err {err:.2e} against paged "
+            f"decode at lengths + 1")
     for name, rows in cases.items():
         for r in rows:
             show(name, r)
@@ -262,35 +435,60 @@ def phase_kernels():
     return cases
 
 
-def phase_main_shapes(seen) -> dict:
-    """Each kernel against its plain version at the shapes the main path
-    gave it (bfloat16, the serve dtype)."""
+def _most_common_prefill(seen, d):
+    shapes = collections.Counter(x for x in seen if x[0][3] == d)
+    log(f"  prefill shapes at D={d} (q shape, causal, window: calls): "
+        f"{ {str(k): v for k, v in shapes.items()} }")
+    return shapes.most_common(1)[0][0]
+
+
+def _median(steps, label):
+    steps = sorted(steps, key=lambda st: int(st[-1].sum()))
+    mid = steps[len(steps) // 2]
+    log(f"  {len(steps)} {label} steps; the median step attends "
+        f"{mid[-1].tolist()}")
+    return mid
+
+
+def _dense_pages(bt):
+    """Renumber the pages a table names densely (0 stays the scratch page):
+    the engine's pool numbers them up to its size."""
     import numpy as np
-    shapes = collections.Counter(seen["flash_attention"])
-    (q_shape, causal, window), n = shapes.most_common(1)[0]
-    log(f"  prefill shapes on the main path (q shape, causal, window: "
-        f"calls): { {str(k): v for k, v in shapes.items()} }")
-    b, s, h, d = q_shape
-    if (h, d) != (H, D):
-        raise AssertionError(f"main path prefill q {q_shape}: not qwen3-8b")
-    pre = prefill_case("main", b, s, "bfloat16", causal=causal,
-                       window=window, iters=200)
-    steps = sorted(seen["paged_decode"], key=lambda st: int(st[1].sum()))
-    bt, lengths = steps[len(steps) // 2]
-    log(f"  {len(steps)} decode steps on the main path; attended lengths "
-        f"per step {[st[1].tolist() for st in steps]}; the median step "
-        f"has {lengths.tolist()} over a {bt.shape[1]}-page table")
-    # the engine's pool numbers pages up to its size: renumber the ones
-    # this table names densely (0 stays the scratch page)
     ids = np.unique(np.concatenate([[0], bt.ravel()]))
-    dense_bt = np.searchsorted(ids, bt).astype(np.int32)
-    pd = paged_case("main", dense_bt, [int(x) for x in lengths], "bfloat16",
-                    iters=200)
-    show("flash_attention", pre)
-    show("paged_decode", pd)
-    log("main_cases " + json.dumps({"flash_attention": pre,
-                                    "paged_decode": pd}))
-    return {"flash_attention": pre, "paged_decode": pd}
+    return np.searchsorted(ids, bt).astype(np.int32)
+
+
+def phase_main_shapes(seen) -> dict:
+    """Each kernel against its plain version at the shapes its serve phase
+    gave it (bfloat16, the serve dtype)."""
+    out = {}
+    for entry, heads, phase in (("flash_attention", TARGET, "4"),
+                                ("flash_attention_d64", DRAFT, "4c")):
+        (b, s, h, d), causal, window = _most_common_prefill(
+            seen[phase]["flash_attention"], heads[2])
+        if (h, d) != (heads[0], heads[2]):
+            raise AssertionError(f"{entry}: prefill heads {h} x {d}")
+        out[entry] = prefill_case("main", b, s, "bfloat16", heads=heads,
+                                  causal=causal, window=window, iters=200)
+    bt, ln = _median(seen["4"]["paged_decode"], "paged decode (phase 4)")
+    out["paged_decode"] = paged_case("main", _dense_pages(bt),
+                                     [int(x) for x in ln], "bfloat16",
+                                     iters=200)
+    for entry, heads, phase in (("flash_decode", TARGET, "4b"),
+                                ("flash_decode_d64", DRAFT, "4c")):
+        steps = [st for st in seen[phase]["flash_decode"]
+                 if st[0] == heads[2]]
+        _, s, ln = _median(steps, f"D={heads[2]} decode (phase {phase})")
+        out[entry] = decode_case("main", s, [int(x) for x in ln],
+                                 "bfloat16", heads=heads, iters=200)
+    kq, bt, ln = _median(seen["4c"]["paged_verify"], "verify (phase 4c)")
+    out["paged_verify"] = verify_case("main", _dense_pages(bt),
+                                      [int(x) for x in ln], kq, "bfloat16",
+                                      iters=200)
+    for entry, r in out.items():
+        show(entry, r)
+    log("main_cases " + json.dumps(out))
+    return out
 
 
 # ------------------------------------------------------------ phase 3
@@ -307,49 +505,83 @@ def phase_consistency(n_layers: int):
     gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
     log(f"  {cfg.name} x{cfg.n_layers} layers fp32: {gb:.1f} GB of weights "
         f"in {time.perf_counter() - t0:.1f}s")
-    eng = Engine(cfg, params, max_batch=4, bucket=32, paged=True)
     rng = torch.Generator().manual_seed(0)
-    reqs = [GenRequest(rid=f"c{i}", max_new=8, tokens=torch.randint(
-        2, cfg.vocab_size, (n,), generator=rng).numpy().astype("int32"))
-        for i, n in enumerate((24, 11))]
-    # record the logits of every batched paged decode step the engine takes
-    step_logits = []
-    decode = eng._decode_paged
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).numpy()
+               .astype("int32") for n in (24, 11)]
+    fresh_cache = {}
 
-    def recording(p, c, cache, tok):
-        logits, cache = decode(p, c, cache, tok)
-        step_logits.append(logits[:, 0].float().cpu())
-        return logits, cache
+    def fresh(tokens):
+        key = tuple(tokens)
+        if key not in fresh_cache:
+            logits = dense.prefill(params, cfg, torch.tensor(
+                [list(key)], device="cuda"))[0][0, 0].float().cpu()
+            fresh_cache[key] = logits
+        return fresh_cache[key]
 
-    eng._decode_paged = recording
-    eng.serve(reqs)
-    # both requests are admitted together, into rows 0 and 1; decode step
-    # k feeds token k of every live row and yields the logits of token k+1
-    worst, n_checked = 0.0, 0
-    for row, r in enumerate(reqs):
-        toks = [int(t) for t in r.tokens] + [int(t) for t in r.result]
-        for t in range(len(r.result)):
-            prefix = torch.tensor([toks[: len(r.tokens) + t]], device="cuda")
-            fresh = dense.prefill(params, cfg, prefix)[0][0, 0].float().cpu()
-            want = int(torch.argmax(masked_logits(fresh, cfg.vocab_size)))
-            if want != int(r.result[t]):
-                raise AssertionError(f"{r.rid} token {t}: engine "
-                                     f"{r.result[t]} != prefill {want}")
-            if t == 0:
-                continue                   # token 0 comes from the prefill
-            diff = float((step_logits[t - 1][row] - fresh).abs().max())
-            scale = float(fresh.abs().max())
-            worst = max(worst, diff / scale)
-            n_checked += 1
-            if diff > 1e-3 * scale:
-                raise AssertionError(f"{r.rid} step {t}: |paged - prefill| "
-                                     f"{diff:.3e} > 1e-3 * {scale:.3e}")
-    log(f"  {n_checked} paged decode steps match fresh prefills: worst "
-        f"|diff| / max|logit| = {worst:.2e} (limit 1e-3); greedy tokens "
-        f"identical")
-    del params, eng
+    worst = {}
+
+    def held(kind, got, tokens, what):
+        want = fresh(tokens)
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        worst[kind] = max(worst.get(kind, 0.0), diff / scale)
+        if diff > 1e-3 * scale:
+            raise AssertionError(f"{what}: |{kind} - prefill| {diff:.3e} > "
+                                 f"1e-3 * {scale:.3e}")
+
+    def serve(**kw):
+        eng = Engine(cfg, params, max_batch=4, bucket=32, **kw)
+        reqs = [GenRequest(rid=f"c{i}", max_new=8, tokens=p)
+                for i, p in enumerate(prompts)]
+        steps = []
+        attr = ("_verify" if "spec_draft" in kw else
+                "_decode_paged" if kw.get("paged") else "_decode")
+        fwd = getattr(eng, attr)
+
+        def recording(p, c, cache, tok):
+            # rows with a sampled token are the step's live rows; their
+            # fed history is the prompt plus what they emitted before it
+            live = {i: [int(t) for t in s.req.tokens] + s.out[:-1]
+                    for i, s in enumerate(eng._slots)
+                    if s is not None and s.out}
+            logits, cache = fwd(p, c, cache, tok)
+            steps.append((live, tok.cpu().tolist(), logits.float().cpu()))
+            return logits, cache
+
+        setattr(eng, attr, recording)
+        eng.serve(reqs)
+        return reqs, steps
+
+    results = {}
+    for mode, kw in (("paged", dict(paged=True)), ("slot", {}),
+                     ("spec", dict(paged=True, spec_draft=(cfg, params),
+                                   spec_k=SPEC_K))):
+        reqs, steps = serve(**kw)
+        results[mode] = [r.result.tolist() for r in reqs]
+        for live, toks, logits in steps:
+            for i, hist in live.items():
+                for j in range(len(toks[i])):
+                    held(mode, logits[i, j], hist + toks[i][: j + 1],
+                         f"{mode} row {i} position {j}")
+        # each emitted token is the greedy choice of a fresh prefill
+        for r in reqs:
+            toks = [int(t) for t in r.tokens] + [int(t) for t in r.result]
+            for t in range(len(r.result)):
+                want = int(torch.argmax(masked_logits(
+                    fresh(toks[: len(r.tokens) + t]), cfg.vocab_size)))
+                if want != int(r.result[t]):
+                    raise AssertionError(f"{mode} {r.rid} token {t}: "
+                                         f"{r.result[t]} != prefill {want}")
+        log(f"  {mode}: {sum(len(t) for t in results[mode])} tokens; "
+            f"{len(steps)} {'verify' if mode == 'spec' else 'decode'} steps "
+            f"held to fresh prefills: worst |diff| / max|logit| = "
+            f"{worst[mode]:.2e} (limit 1e-3)")
+    if not results["paged"] == results["slot"] == results["spec"]:
+        raise AssertionError(f"greedy streams differ: {results}")
+    log("  paged, slot and agreeing-spec greedy tokens identical")
+    del params, fresh_cache
     torch.cuda.empty_cache()
-    return {"steps_checked": n_checked, "worst_rel_diff": worst}
+    return {"worst_rel_diff": worst}
 
 
 def _leaves(tree):
@@ -361,62 +593,91 @@ def _leaves(tree):
 
 
 # ------------------------------------------------------------ phase 4
-def recording_ops(ops, seen):
-    """Wrap ``ops.attention`` / ``ops.paged_decode`` (the calls the model
-    makes) so that each call also notes what it was given: the prefill's
-    (q shape, causal, window), and once per decode step (one lengths tensor
-    serves all layers) a device copy of its block table and lengths.
-    Returns a function that puts the originals back."""
-    attention, paged_decode = ops.attention, ops.paged_decode
+def recording_ops(ops, seen, widths):
+    """Wrap the attention entry points the model calls so that each call
+    also notes what it was given: the prefill's (q shape, causal, window);
+    once per decode or verify step (one lengths tensor serves all layers) a
+    host copy of its shapes, table and lengths; and every call's head width
+    in ``widths``.  Returns a function that puts the originals back."""
+    names = ("attention", "paged_decode", "decode", "paged_verify")
+    orig = {n: getattr(ops, n) for n in names}
     last = [None]
 
-    def att(q, k, v, *, causal=True, window=None):
-        seen["flash_attention"].append((tuple(q.shape), causal, window))
-        return attention(q, k, v, causal=causal, window=window)
-
-    def paged(q, k_pool, v_pool, block_tables, lengths):
+    def step(key, lengths, *record):
         if lengths is not last[0]:
             last[0] = lengths
-            seen["paged_decode"].append((block_tables.clone(),
-                                         lengths.clone()))
-        return paged_decode(q, k_pool, v_pool, block_tables, lengths)
+            seen[key].append(tuple(record) + (lengths.cpu().numpy(),))
 
-    ops.attention, ops.paged_decode = att, paged
+    def att(q, k, v, *, causal=True, window=None):
+        widths["flash_attention", q.shape[3]] += 1
+        seen["flash_attention"].append((tuple(q.shape), causal, window))
+        return orig["attention"](q, k, v, causal=causal, window=window)
+
+    def paged(q, k_pool, v_pool, block_tables, lengths):
+        widths["paged_decode", q.shape[3]] += 1
+        step("paged_decode", lengths, block_tables.cpu().numpy())
+        return orig["paged_decode"](q, k_pool, v_pool, block_tables, lengths)
+
+    def decode(q, k_cache, v_cache, lengths, *, window=None):
+        widths["flash_decode", q.shape[3]] += 1
+        step("flash_decode", lengths, q.shape[3], k_cache.shape[1])
+        return orig["decode"](q, k_cache, v_cache, lengths, window=window)
+
+    def verify(q, k_pool, v_pool, block_tables, lengths):
+        widths["paged_verify", q.shape[3]] += 1
+        step("paged_verify", lengths, q.shape[1], block_tables.cpu().numpy())
+        return orig["paged_verify"](q, k_pool, v_pool, block_tables, lengths)
+
+    ops.attention, ops.paged_decode, ops.decode, ops.paged_verify = (
+        att, paged, decode, verify)
 
     def restore():
-        ops.attention, ops.paged_decode = attention, paged_decode
+        for n in names:
+            setattr(ops, n, orig[n])
     return restore
 
 
-def phase_serve():
+def phase_serve(phase, params, first=None):
+    """Serve the scenario on ``PHASE_MODE[phase]`` engines; check every
+    request's tokens and that every kernel entry of the phase launched;
+    print step times and rerun under the profiler."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    mode = PHASE_MODE[phase]
     cfg = get_config("qwen3-8b").replace(dtype="bfloat16")
     dev = torch.device("cuda")
-    params = [serve.seeded_params(i, cfg, dev) for i in range(2)]
-    kw = dict(nodes=2, requests=8, max_new=8, seed=0, device=dev,
-              params_fn=lambda i, c, d: params[i])
-    seen = {"flash_attention": [], "paged_decode": []}
-    restore = recording_ops(ops, seen)
+    kw = dict(nodes=2, requests=8, max_new=8, seed=0, device=dev, mode=mode,
+              spec_k=SPEC_K, params_fn=lambda i, c, d: params[i])
+    seen = {k: [] for k in ("flash_attention", "paged_decode",
+                            "flash_decode", "paged_verify")}
+    widths = collections.Counter()
+    restore = recording_ops(ops, seen, widths)
     try:
         ops.reset_launch_counts()
         out = serve.run(cfg, **kw)
         launches = ops.launch_counts()
     finally:
         restore()
-    seen["paged_decode"] = [(bt.cpu().numpy(), ln.cpu().numpy())
-                            for bt, ln in seen["paged_decode"]]
-    log(f"  launches on the main path: {launches}")
+    log(f"  launches on the {mode} path: {launches}; by (kernel, head "
+        f"width): {dict(widths)}")
+    for kernel, n in launches.items():
+        if n != sum(c for (k, _), c in widths.items() if k == kernel):
+            raise AssertionError(f"{kernel}: {n} launches but "
+                                 f"{dict(widths)} calls")
+    missing = sorted(f"{k}@{d}" for k, d in PATHS[phase] if widths[k, d] < 1)
+    if missing:
+        raise AssertionError(f"kernels of the {mode} path never launched: "
+                             f"{missing}")
+    mine = {e: widths[k, d] for e, (k, d, p) in ENTRIES.items()
+            if p == phase}
     if set(out["results"]) != {f"r{i}" for i in range(8)}:
         raise AssertionError(f"requests without a result: {out['results']}")
     for rid, toks in out["results"].items():
         if not (1 <= len(toks) <= 8 and (toks >= 0).all()
                 and (toks < cfg.vocab_size).all()):
             raise AssertionError(f"{rid}: bad tokens {toks}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel never launched: {launches}")
     log(f"  serve: {out['tokens']} tokens in {out['wall_s']:.3f}s "
         f"({out['tok_per_s']:.1f} tok/s), assignment "
         f"{ {k: len(v) for k, v in out['assigned'].items()} }, balances "
@@ -425,23 +686,50 @@ def phase_serve():
     # its floor is the weights' bytes over the memory rate
     wbytes = sum(t.numel() * t.element_size() for t in _leaves(params[0]))
     floor_ms = wbytes / HBM_BYTES_PER_S * 1e3
-    steps = {nid: dict(prefill_ms=st.prefill_wall_s / max(1, st.batches)
-                       * 1e3, prefill_batches=st.batches,
-                       decode_ms=st.decode_wall_s / max(1, st.decode_steps)
-                       * 1e3, decode_steps=st.decode_steps)
-             for nid, st in out["stats"].items()}
-    for nid, st in steps.items():
-        log(f"  {nid}: {st['prefill_batches']} prefills at "
-            f"{st['prefill_ms']:.2f} ms, {st['decode_steps']} decode steps "
-            f"at {st['decode_ms']:.2f} ms (weight-streaming floor "
-            f"{floor_ms:.2f} ms)")
+    steps = {}
+    for nid, st in out["stats"].items():
+        steps[nid] = dict(
+            prefill_ms=st.prefill_wall_s / max(1, st.batches) * 1e3,
+            prefill_batches=st.batches,
+            decode_ms=st.decode_wall_s / max(1, st.decode_steps) * 1e3,
+            decode_steps=st.decode_steps, decode_tokens=st.decode_tokens)
+        line = (f"  {nid}: {st.batches} prefills at "
+                f"{steps[nid]['prefill_ms']:.2f} ms, {st.decode_steps} "
+                f"{'verify' if mode == 'spec' else 'decode'} steps at "
+                f"{steps[nid]['decode_ms']:.2f} ms (weight-streaming floor "
+                f"{floor_ms:.2f} ms)")
+        if mode == "spec":
+            steps[nid].update(
+                spec_steps=st.spec_steps, spec_drafted=st.spec_drafted,
+                spec_accepted=st.spec_accepted,
+                draft_ms_per_step=st.draft_wall_s / max(1, st.spec_steps)
+                * 1e3,
+                verify_ms_per_step=st.verify_wall_s / max(1, st.spec_steps)
+                * 1e3,
+                expected_tokens_per_step=out["expected_tokens_per_step"][nid])
+            line += (f"; accepted {st.spec_accepted}/{st.spec_drafted} "
+                     f"drafts over {st.spec_steps} verifies, draft "
+                     f"{steps[nid]['draft_ms_per_step']:.2f} ms and verify "
+                     f"{steps[nid]['verify_ms_per_step']:.2f} ms per step")
+        log(line)
+    extra = {}
+    if first is not None:
+        same = sum(int(a == b) for rid, t in first["results"].items()
+                   for a, b in zip(t.tolist(),
+                                   out["results"][rid].tolist()))
+        total = sum(len(t) for t in first["results"].values())
+        extra["share_equal_to_paged"] = same / total
+        log(f"  tokens equal to phase 4's, position by position: {same} of "
+            f"{total} (bf16: verify and decode GEMMs may round differently; "
+            f"exact equality is held in fp32 in phase 3)")
     profile = profile_serve(serve, cfg, kw, out)
-    log("serve_profile " + json.dumps(dict(
-        steps=steps, weights_gb=wbytes / 1e9, step_floor_ms=floor_ms,
-        tok_per_s=out["tok_per_s"], wall_s=out["wall_s"], **profile)))
-    del params
-    torch.cuda.empty_cache()
-    return out, launches, seen
+    log(f"serve_profile_{phase} " + json.dumps(dict(
+        mode=mode, steps=steps, weights_gb=wbytes / 1e9,
+        step_floor_ms=floor_ms, tok_per_s=out["tok_per_s"],
+        wall_s=out["wall_s"], launches=launches,
+        launches_by_width={f"{k}@{d}": n for (k, d), n in widths.items()},
+        **extra, **profile)))
+    return out, mine, seen
 
 
 def profile_serve(serve, cfg, kw, first) -> dict:
@@ -489,22 +777,36 @@ def main() -> int:
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     log("[2] kernels vs their plain versions")
     phase_kernels()
-    log("[3] model consistency: paged decode vs fresh prefill")
+    log("[3] model consistency: paged, slot and verify logits vs fresh "
+        "prefills")
     phase_consistency(n_layers=36)
-    log("[4] serve (main path)")
-    _, launches, seen = phase_serve()
-    log("[5] kernels vs their plain versions at the main path's shapes")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = get_config("qwen3-8b").replace(dtype="bfloat16")
+    params = [serve.seeded_params(i, cfg, torch.device("cuda"))
+              for i in range(2)]
+    seen, launches = {}, {}
+    log("[4] serve on paged engines")
+    paged_out, launches["4"], seen["4"] = phase_serve("4", params)
+    log("[4b] serve on slot engines (the driver's default)")
+    _, launches["4b"], seen["4b"] = phase_serve("4b", params)
+    log("[4c] serve on speculative paged engines, draft cfg.draft()")
+    _, launches["4c"], seen["4c"] = phase_serve("4c", params,
+                                                first=paged_out)
+    del params
+    torch.cuda.empty_cache()
+    log("[5] kernels vs their plain versions at the serve phases' shapes")
     main_cases = phase_main_shapes(seen)
     kernels = []
-    for name, meta in ops.KERNELS.items():
-        r = main_cases[name]
+    for entry, (kernel, d, phase) in ENTRIES.items():
+        meta, r = ops.KERNELS[kernel], main_cases[entry]
         kernels.append(dict(
-            name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=launches[name],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], call_ms=r["call_ms"],
-            shape=r["shape"], dtype=r["dtype"]))
+            name=entry, route="cuda", source=meta["source"],
+            replaces=meta["replaces"], head_dim=d, phase=phase,
+            launches=launches[phase][entry], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            call_ms=r["call_ms"], shape=r["shape"], dtype=r["dtype"]))
     log(f"total {time.perf_counter() - t_all:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -23,7 +23,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/_build.py -> the checkout root is three levels up
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("flash_attention", "paged_decode")
+SOURCES = ("flash_attention", "paged_decode", "flash_decode", "paged_verify")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 

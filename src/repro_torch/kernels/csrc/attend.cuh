@@ -1,0 +1,220 @@
+// Shared body of the port's decode-shaped attention kernels (contiguous
+// decode, paged decode, paged multi-token verify): one block per (kv head,
+// batch row) attends that row's few query rows to its KV, which it walks in
+// 64-position chunks with an online softmax in fp32.
+//
+// What bounds these kernels on the H100: each K/V element is read once and
+// used for 2 * rows operations (rows = K * rep query rows share it: 1 * 4
+// for qwen3-8b decode, 5 * 4 for its verify), a few operations per byte
+// against the ~295 the card needs in bf16, so the bytes of the KV they read
+// bound them (3.35 TB/s).  The design reads each element once: the rows of
+// a kv head's group share every staged chunk, so K/V are never re-read per
+// query head or per verify token, and a row walks only the positions some
+// query of the block can see, not the whole cache or table.
+//
+// Layout and masking:
+// * q and out are (B, K, H, D).  Row r of a block is (token j = r / rep,
+//   head g * rep + r % rep), rep = H / Hkv.
+// * Row b's query j sees positions [lo, hi_j): lo = max(0, len - window)
+//   with a window, else 0; hi_j = min(len + j + extra, n), len = lengths[b],
+//   n = the positions the row's KV has (S, or maxp * page).  extra is 0 for
+//   decode (positions < len) and 1 for verify (positions <= len + j).
+// * Masked positions take the finite -1e30 of the plain versions, positions
+//   outside the walk -inf, and l is floored at 1e-30.  When no query of the
+//   block sees a key (a decode row of length 0, or a window past the cache)
+//   the block walks all n positions at -1e30 and returns the mean of V, as
+//   the plain version does; it reads no K then.  With len >= 0 a verify
+//   block always has a visible key, so no block mixes rows with and without.
+// * Splitting a long row across blocks (flash-decoding), tensor cores and
+//   TMA staging are later work.
+
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace repro_torch {
+
+constexpr int kChunk = 64;     // key positions staged per step
+constexpr int kThreads = 128;
+
+// A row's KV as a contiguous cache (B, S, Hkv, D).
+struct ContiguousKv {
+  int S;
+  __device__ __forceinline__ int positions() const { return S; }
+  // index of position `pos` of row `b` along the (B*S) or (P*page) axis
+  __device__ __forceinline__ size_t slot(int b, int pos) const { return (size_t)b * S + pos; }
+};
+
+// A row's KV in a page pool (P, page, Hkv, D) reached through its block
+// table (B, maxp).  JAX clamps an out-of-range gather, CUDA would read
+// outside the pool: an entry outside [0, P) traps (a device-side assert).
+struct PagedKv {
+  const int* __restrict__ block_tables;
+  int page, maxp, P;
+  __device__ __forceinline__ int positions() const { return maxp * page; }
+  __device__ __forceinline__ size_t slot(int b, int pos) const {
+    const int lp = pos / page;
+    const int phys = block_tables[(size_t)b * maxp + lp];
+    if (phys < 0 || phys >= P) __trap();
+    return (size_t)phys * page + (pos - lp * page);
+  }
+};
+
+template <int D>
+size_t attend_smem_bytes(int rows) {
+  return sizeof(float) * ((size_t)rows * D + kChunk * (D + 1) + kChunk * D + rows * kChunk + 3 * rows);
+}
+
+template <typename T, int D, int kMaxRows, class Kv>
+__global__ void __launch_bounds__(kThreads)
+attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const int* __restrict__ lengths, T* __restrict__ out, int H, int Hkv, int K,
+              int extra, int window, float scale, Kv kv) {
+  extern __shared__ float smem[];
+  const int rep = H / Hkv;
+  const int rows = K * rep;
+  float* sQ = smem;                        // rows x D
+  float* sK = sQ + rows * D;               // kChunk x (D+1)
+  float* sV = sK + kChunk * (D + 1);       // kChunk x D
+  float* sS = sV + kChunk * D;             // rows x kChunk: scores, then weights
+  float* sM = sS + rows * kChunk;          // rows: running max
+  float* sL = sM + rows;                   // rows: running sum
+  float* sA = sL + rows;                   // rows: this step's rescale
+  constexpr int kVec = Elem<T>::kVec;
+  constexpr int kVecPerRow = D / kVec;
+  constexpr int kRowStride = kThreads / D; // rows apart per thread
+  constexpr int kAcc = (kMaxRows + kRowStride - 1) / kRowStride;
+
+  const int g = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n = kv.positions();
+  const int len = lengths[b];
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  const int hi_last = min(len + K - 1 + extra, n);   // the last query's end
+  const bool dead = hi_last <= lo;         // no query sees a key
+  const int w_lo = dead ? 0 : lo;
+  const int w_hi = dead ? n : hi_last;
+
+  for (int i = tid; i < rows * kVecPerRow; i += kThreads) {
+    const int r = i / kVecPerRow;
+    const int c = (i % kVecPerRow) * kVec;
+    Elem<T>::load_vec(q + (((size_t)b * K + r / rep) * H + g * rep + r % rep) * D + c,
+                      sQ + r * D + c);
+  }
+  for (int r = tid; r < rows; r += kThreads) {
+    sM[r] = kNegInf;
+    sL[r] = 0.f;
+  }
+  const int dcol = tid % D;
+  const int rsub = tid / D;
+  float acc[kAcc];
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+
+  for (int c0 = (w_lo / kChunk) * kChunk; c0 < w_hi; c0 += kChunk) {
+    __syncthreads();                       // previous step fully consumed
+    for (int i = tid; i < kChunk * kVecPerRow; i += kThreads) {
+      const int r = i / kVecPerRow;
+      const int c = (i % kVecPerRow) * kVec;
+      const int pos = c0 + r;
+      float* dk = sK + r * (D + 1) + c;
+      float* dv = sV + r * D + c;
+      if (pos >= w_lo && pos < w_hi) {
+        const size_t off = (kv.slot(b, pos) * Hkv + g) * D + c;
+        if (!dead) {                       // a block without a key scores none
+          float tmp[kVec];
+          Elem<T>::load_vec(k + off, tmp);
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) dk[j] = tmp[j];
+        }
+        Elem<T>::load_vec(v + off, dv);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) { dk[j] = 0.f; dv[j] = 0.f; }
+      }
+    }
+    __syncthreads();
+
+    for (int e = tid; e < rows * kChunk; e += kThreads) {
+      const int r = e / kChunk;
+      const int kk = e % kChunk;
+      const int pos = c0 + kk;
+      float s;
+      if (pos < w_lo || pos >= w_hi) {
+        s = neg_inf();
+      } else if (dead || pos >= min(len + r / rep + extra, n)) {
+        s = kNegInf;
+      } else {
+        float dot = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < D; ++d) dot = fmaf(sQ[r * D + d], sK[kk * (D + 1) + d], dot);
+        s = dot * scale;
+      }
+      sS[r * kChunk + kk] = s;
+    }
+    __syncthreads();
+
+    for (int r = warp; r < rows; r += kThreads / 32) {
+      const float s0 = sS[r * kChunk + lane];
+      const float s1 = sS[r * kChunk + lane + 32];
+      const float m_old = sM[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
+      const float p0 = expf(s0 - m_new);
+      const float p1 = expf(s1 - m_new);
+      sS[r * kChunk + lane] = p0;
+      sS[r * kChunk + lane + 32] = p1;
+      const float ps = warp_sum(p0 + p1);
+      if (lane == 0) {
+        const float a = expf(m_old - m_new);
+        sA[r] = a;
+        sL[r] = sL[r] * a + ps;
+        sM[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) {
+      const int r = rsub + j * kRowStride;
+      if (r < rows) {
+        float x = acc[j] * sA[r];
+#pragma unroll 8
+        for (int kk = 0; kk < kChunk; ++kk) x = fmaf(sS[r * kChunk + kk], sV[kk * D + dcol], x);
+        acc[j] = x;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) {
+    const int r = rsub + j * kRowStride;
+    if (r < rows) {
+      out[(((size_t)b * K + r / rep) * H + g * rep + r % rep) * D + dcol] =
+          Elem<T>::store(acc[j] / fmaxf(sL[r], 1e-30f));
+    }
+  }
+}
+
+// Launch attend_kernel on a (Hkv, B) grid.  Returns the CUDA error of the
+// launch (0 on success); the caller checked K * H / Hkv <= kMaxRows.
+template <typename T, int D, int kMaxRows, class Kv>
+int launch_attend(const void* q, const void* k, const void* v, const int* lengths, void* out,
+                  int B, int H, int Hkv, int K, int extra, int window, float scale, Kv kv,
+                  int device, cudaStream_t stream) {
+  static bool smem_allowed[kMaxDevices] = {};
+  const cudaError_t e = allow_smem_once(attend_kernel<T, D, kMaxRows, Kv>,
+                                        attend_smem_bytes<D>(kMaxRows), device, smem_allowed);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = attend_smem_bytes<D>(K * (H / Hkv));
+  attend_kernel<T, D, kMaxRows, Kv><<<dim3(Hkv, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
+      static_cast<T*>(out), H, Hkv, K, extra, window, scale, kv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace repro_torch

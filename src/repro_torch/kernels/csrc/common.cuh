@@ -43,9 +43,6 @@ template <> struct Elem<__nv_bfloat16> {
   __device__ static __forceinline__ __nv_bfloat16 store(float x) { return __float2bfloat16(x); }
 };
 
-// The one head width the kernels are built for: qwen3-8b's, the only model
-// the port serves so far.
-constexpr int kHeadDim = 128;
 constexpr int kMaxDevices = 64;
 
 // Make `device` current, without a cudaSetDevice when it already is.

@@ -30,7 +30,8 @@
 //   A row that sees no key at all (only possible when Sq > Skv with a
 //   window) makes the block visit every tile, so it averages all of V as
 //   the plain version does.
-// * Built for head width 128 (kHeadDim) in fp32 and bf16.
+// * Built for head widths 64 (the speculative draft) and 128 (qwen3-8b) in
+//   fp32 and bf16.
 
 #include <stdint.h>
 
@@ -227,25 +228,34 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_width(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
+                 int H, int Hkv, int D, int causal, int window, float scale, int device,
+                 cudaStream_t st) {
+  if (D == 64)
+    return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, scale, device, st);
+  return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, scale, device, st);
+}
+
 }  // namespace
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16.  D must be kHeadDim.  window <= 0 means
-// no window.  Returns the CUDA error of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  D must be 64 or 128.  window <= 0
+// means no window.  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    int dtype, int B, int Sq, int Skv, int H, int Hkv, int D,
                                    int causal, int window, float scale, int device,
                                    void* stream) {
   using namespace repro_torch;
-  if (D != kHeadDim) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, kHeadDim>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, scale,
-                                   device, st);
+    return launch_width<float>(q, k, v, out, B, Sq, Skv, H, Hkv, D, causal, window, scale,
+                               device, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, kHeadDim>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window,
-                                           scale, device, st);
+    return launch_width<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, Hkv, D, causal, window,
+                                       scale, device, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,9 +17,15 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 128          # the one width the kernels are built for (qwen3-8b)
+_HEAD_DIMS = (64, 128)  # the widths it is built for: the draft's, qwen3-8b's
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def check_head_dim(d: int, built) -> None:
+    """Raise unless ``d`` is one of the head widths ``built``."""
+    if d not in built:
+        raise ValueError(f"head_dim {d}: the kernel is built for {built}")
 
 
 def check_cuda_inputs(tensors, dtype: torch.dtype) -> None:
@@ -51,8 +57,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     skv, hkv = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or h % hkv or sq < 1 or skv < 1:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)}")
-    if d != HEAD_DIM:
-        raise ValueError(f"head_dim {d}: the kernel is built for {HEAD_DIM}")
+    check_head_dim(d, _HEAD_DIMS)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k, v must share one dtype")
     if window is not None and window < 1:

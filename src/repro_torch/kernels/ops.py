@@ -15,8 +15,11 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_decode import flash_decode_cuda
 from repro_torch.kernels.paged_decode import paged_decode_cuda
-from repro_torch.kernels.ref import flash_ref, paged_decode_ref
+from repro_torch.kernels.paged_verify import paged_verify_cuda
+from repro_torch.kernels.ref import (decode_ref, flash_ref, paged_decode_ref,
+                                     paged_verify_ref)
 
 # each kernel: its launching wrapper, its CUDA source and the TPU kernel
 # (file:line of the function that reaches the Pallas call) it replaces
@@ -29,6 +32,14 @@ KERNELS = {
         wrapper=paged_decode_cuda,
         source="src/repro_torch/kernels/csrc/paged_decode.cu",
         replaces="src/repro/kernels/paged_decode.py:192"),
+    "flash_decode": dict(
+        wrapper=flash_decode_cuda,
+        source="src/repro_torch/kernels/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode.py:66"),
+    "paged_verify": dict(
+        wrapper=paged_verify_cuda,
+        source="src/repro_torch/kernels/csrc/paged_verify.cu",
+        replaces="src/repro/kernels/spec_verify.py:87"),
 }
 
 
@@ -57,6 +68,29 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if _on_cuda(q):
         return paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths)
     return paged_decode_ref(q, k_pool, v_pool, block_tables, lengths)
+
+
+def decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           lengths: torch.Tensor, *,
+           window: Optional[int] = None) -> torch.Tensor:
+    """Contiguous decode.  q: (B, 1, H, D); caches (B, S, Hkv, D);
+    lengths: (B,) int32, positions ``max(0, len - window) <= k < len``
+    valid."""
+    if _on_cuda(q):
+        return flash_decode_cuda(q, k_cache, v_cache, lengths, window=window)
+    return decode_ref(q, k_cache, v_cache, lengths, window=window)
+
+
+def paged_verify(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 block_tables: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """Block-table multi-token verify.  q: (B, K, H, D); pools
+    (P, page, Hkv, D); block_tables: (B, maxp) int32; lengths: (B,) int32
+    before the K new tokens, query j attending positions
+    ``<= lengths[b] + j``."""
+    if _on_cuda(q):
+        return paged_verify_cuda(q, k_pool, v_pool, block_tables, lengths)
+    return paged_verify_ref(q, k_pool, v_pool, block_tables, lengths)
 
 
 def launch_counts() -> Dict[str, int]:

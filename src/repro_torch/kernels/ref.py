@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the kernels: the CPU path and the oracles the
 CUDA kernels are compared with on the card.
 
-Port of ``repro.kernels.ref`` (``flash_ref``, ``paged_decode_ref``).  They
-repeat the kernels' arithmetic in float32 with whole-tensor operations;
-they are no yardstick of speed.
+Port of ``repro.kernels.ref`` (``flash_ref``, ``decode_ref``,
+``paged_decode_ref``, ``verify_ref``, ``paged_verify_ref``).  They repeat
+the kernels' arithmetic in float32 with whole-tensor operations; they are
+no yardstick of speed.
 """
 
 from __future__ import annotations
@@ -12,7 +13,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.attention import decode_attention, reference_attention
+from repro_torch.models.attention import (decode_attention,
+                                          reference_attention,
+                                          verify_attention)
+
+# plain version of the contiguous decode kernel: q (B, 1, H, D), caches
+# (B, S, Hkv, D), cache_len () or (B,), optional window
+decode_ref = decode_attention
+# plain version of multi-token verify over a contiguous cache: q (B, K, H, D)
+verify_ref = verify_attention
 
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -45,3 +54,18 @@ def paged_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,
     k = _gather_pages(k_pool, block_tables)
     v = _gather_pages(v_pool, block_tables)
     return decode_attention(q, k, v, lengths)
+
+
+def paged_verify_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                     v_pool: torch.Tensor, block_tables: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """Plain version of the paged verify kernel: gather each row's pages,
+    then ``verify_attention``.  q: (B, K, H, D), the K new tokens' KV
+    already in the pool at positions ``lengths[b] .. lengths[b]+K-1``;
+    pools and tables as in ``paged_decode_ref``; lengths: (B,) int32 valid
+    tokens per row before the K new ones.  Query j attends positions
+    ``<= lengths[b] + j`` of the table's ``maxp * page``.  Returns
+    (B, K, H, D)."""
+    k = _gather_pages(k_pool, block_tables)
+    v = _gather_pages(v_pool, block_tables)
+    return verify_attention(q, k, v, lengths)

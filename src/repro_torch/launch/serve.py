@@ -1,22 +1,26 @@
 """End-to-end decentralized serving driver on PyTorch (the paper's system).
 
 Port of ``repro.launch.serve``: spins up N WWW.Serve nodes, each backed by
-a real paged PyTorch engine; users submit requests to the hot node; the
+a real PyTorch engine; users submit requests to the hot node; the
 decentralized protocol (PoS routing, credit ledger, duels) redistributes
 them in the event-loop simulation.  The protocol's executor assignments
 are then replayed on the real engines behind the ``EngineExecutor``
 interface (DESIGN.md §6.1): all engines are pumped step by step in
 round-robin, so admissions interleave with decode as under live traffic.
 
-On the card (the default) the nodes serve the full-width model in
-bfloat16, each with its own seeded random weights; on the CPU
-(``--device cpu``) they serve the reduced float32 config the reference
-driver runs, with the kernels' plain versions::
+The engines are slot engines by default, as in the reference; ``--paged``
+backs the nodes with paged-KV engines and ``--spec`` with speculative
+paged engines whose draft is ``cfg.draft()``.  On the card (the default)
+the nodes serve the full-width model in bfloat16, each with its own seeded
+random weights; on the CPU (``--device cpu``) they serve the reduced
+float32 config the reference driver runs, with the kernels' plain
+versions::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --paged --nodes 2 --requests 8 --max-new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --nodes 2 --requests 8 --max-new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --spec --device cpu
 
-Only paged engines are ported: without ``--paged`` the driver stops with
-an error, because slot engines wait for the ``flash_decode`` port.
+``--disagg``, ``--kv-quant`` and ``--trace`` are not ported yet: the
+driver stops with an error naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,11 +36,14 @@ from repro_torch.core import DuelParams, Network, Node, NodePolicy
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import wall_now
-from repro_torch.serving import Engine, EngineExecutor, GenRequest
+from repro_torch.serving import (Engine, EngineExecutor, GenRequest,
+                                 SpecEngineExecutor)
 from repro_torch.sim import make_profile
 from repro_torch.sim.workload import Request
 
 ParamsFn = Callable[[int, ModelConfig, torch.device], Dict]
+DraftParamsFn = Callable[[ModelConfig, torch.device], Dict]
+_MODES = ("slot", "paged", "spec")
 
 
 def require_device(device: str | torch.device) -> torch.device:
@@ -55,18 +62,38 @@ def seeded_params(i: int, cfg: ModelConfig, device: torch.device) -> Dict:
     return registry.init(cfg, torch.Generator(device).manual_seed(i), device)
 
 
+def seeded_draft_params(cfg: ModelConfig, device: torch.device) -> Dict:
+    """The draft's random weights, shared by every node, from a generator
+    seeded with 10_000 (the reference seeds ``jax.random.PRNGKey(10_000)``)."""
+    return registry.init(cfg, torch.Generator(device).manual_seed(10_000),
+                         device)
+
+
 def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
         max_new: int = 16, duel_rate: float = 0.2, seed: int = 0,
-        device: str | torch.device = "cuda",
-        params_fn: Optional[ParamsFn] = None, verbose: bool = True) -> Dict:
-    """Run the scenario and return what it produced: the protocol's
-    assignment (node -> request ids), the credit balances, every request's
-    tokens, per-node engine stats, and the replay's wall time and
-    tokens/s (the replay ends in a device synchronisation)."""
+        device: str | torch.device = "cuda", mode: str = "slot",
+        spec_k: int = 4, params_fn: Optional[ParamsFn] = None,
+        draft_params_fn: Optional[DraftParamsFn] = None,
+        verbose: bool = True) -> Dict:
+    """Run the scenario on ``mode`` engines (slot, paged or spec) and
+    return what it produced: the protocol's assignment (node -> request
+    ids), the credit balances, every request's tokens, per-node engine
+    stats (and, with spec, each node's ``expected_tokens_per_step``), and
+    the replay's wall time and tokens/s (the replay ends in a device
+    synchronisation)."""
+    if mode not in _MODES:
+        raise ValueError(f"mode {mode!r} not in {_MODES}")
     dev = require_device(device)
     params_fn = params_fn or seeded_params
     say = print if verbose else (lambda *a, **k: None)
     say(f"spinning up {nodes} nodes serving {cfg.name} on {dev}")
+    spec_draft = None
+    if mode == "spec":
+        # one shared draft model across nodes (a tiny same-tokenizer
+        # sibling; in a real deployment each node brings its own)
+        draft_cfg = cfg.draft()
+        spec_draft = (draft_cfg, (draft_params_fn or seeded_draft_params)(
+            draft_cfg, dev))
     prompt_len = 24
     rng = np.random.default_rng(seed)
     net = Network(mode="decentralized", seed=seed,
@@ -75,9 +102,11 @@ def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
     executors: Dict[str, EngineExecutor] = {}
     for i in range(nodes):
         nid = f"node{i+1}"
-        executors[nid] = EngineExecutor(
-            Engine(cfg, params_fn(i, cfg, dev), max_batch=4, bucket=32,
-                   seed=i, paged=True))
+        engine = Engine(cfg, params_fn(i, cfg, dev), max_batch=4, bucket=32,
+                        seed=i, paged=mode != "slot", spec_draft=spec_draft,
+                        spec_k=spec_k)
+        executors[nid] = (SpecEngineExecutor(engine) if mode == "spec"
+                          else EngineExecutor(engine))
         executors[nid].owner = nid     # real-engine spans carry the node id
         prof = make_profile("qwen3-8b", "RTX3090", "sglang",
                             quality=0.4 + 0.15 * i)
@@ -121,11 +150,15 @@ def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
         ex, done = executors[nid], done_by_node[nid]
         ld, st = ex.load(), ex.engine_stats()
         total_tokens += sum(len(r.result) for r in done)
+        spec = (f", spec accepted {st.spec_accepted}/{st.spec_drafted} "
+                f"drafts over {st.spec_steps} verifies "
+                f"(E[tok/step] {ld.expected_tokens_per_step:.2f})"
+                if mode == "spec" else "")
         say(f"  {nid}: served {len(done)} requests "
             f"({st.decode_tokens} decode tokens in {st.decode_steps} steps; "
             f"load: {ld.active_streams} active / {ld.queued_streams} queued, "
             f"prefill headroom {ld.prefill_headroom:.2f}, "
-            f"decode headroom {ld.decode_headroom:.2f})")
+            f"decode headroom {ld.decode_headroom:.2f}{spec})")
     balances = {n: net.ledger_balance(n) for n in net.nodes}
     say(f"generated {total_tokens} tokens across {len(by_exec)} nodes in "
         f"{wall_s:.2f}s wall ({total_tokens / wall_s:.1f} tok/s)")
@@ -141,6 +174,9 @@ def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
         "results": {r.rid: np.asarray(r.result)
                     for done in done_by_node.values() for r in done},
         "stats": {nid: executors[nid].engine_stats() for nid in by_exec},
+        "expected_tokens_per_step": {
+            nid: executors[nid].load().expected_tokens_per_step
+            for nid in by_exec},
         "tokens": total_tokens,
         "wall_s": wall_s,
         "tok_per_s": total_tokens / wall_s if wall_s > 0 else 0.0,
@@ -158,21 +194,39 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paged", action="store_true",
                     help="back nodes with paged-KV engines (DESIGN.md "
-                         "§6.1, paged backend); required in this port")
+                         "§6.1, paged backend)")
+    ap.add_argument("--spec", action="store_true",
+                    help="back nodes with speculative-decoding engines: a "
+                         "tiny draft proposes --spec-k tokens per target "
+                         "verify forward (DESIGN.md §6.1-spec; implies "
+                         "paged)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per verify step")
+    ap.add_argument("--disagg", action="store_true",
+                    help="not ported yet (ROADMAP Queue A item 5)")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="not ported yet (ROADMAP Queue A item 5)")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="not ported yet (ROADMAP Queue A item 5)")
     ap.add_argument("--device", default="cuda",
                     help="cuda: the full-width model in bfloat16 on the "
                          "hand-written kernels; cpu: the reduced float32 "
                          "config on their plain versions")
     args = ap.parse_args(argv)
-    if not args.paged:
-        ap.error("slot engines wait for the flash_decode port (ROADMAP "
-                 "Queue B row 4); pass --paged")
+    for flag, what in (("disagg", "disaggregated prefill/decode engines"),
+                       ("kv_quant", "int8 KV pages, Queue B rows 2q/3q"),
+                       ("trace", "lifecycle tracing and obs/export.py")):
+        if getattr(args, flag):
+            ap.error(f"--{flag.replace('_', '-')} is not ported yet ({what}; "
+                     f"ROADMAP Queue A item 5)")
+    mode = "spec" if args.spec else "paged" if args.paged else "slot"
     dev = require_device(args.device)
     cfg = get_config(args.arch)
     cfg = (cfg.replace(dtype="bfloat16") if dev.type == "cuda"
            else cfg.smoke().replace(dtype="float32"))
     run(cfg, nodes=args.nodes, requests=args.requests, max_new=args.max_new,
-        duel_rate=args.duel_rate, seed=args.seed, device=dev)
+        duel_rate=args.duel_rate, seed=args.seed, device=dev, mode=mode,
+        spec_k=args.spec_k)
     return 0
 
 

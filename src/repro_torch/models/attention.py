@@ -1,8 +1,9 @@
 """Plain attention on tensors: the oracles the CUDA kernels are held to.
 
 Port of ``repro.models.attention``: the masking constant,
-``reference_attention`` (naive masked softmax over the whole sequence) and
-``decode_attention`` with per-row cache lengths.  Masked scores take the
+``reference_attention`` (naive masked softmax over the whole sequence),
+``decode_attention`` with per-row cache lengths and the multi-token
+``verify_attention`` of speculative decoding.  Masked scores take the
 finite constant below, never ``-inf``: ``exp`` then underflows cleanly, a
 fully masked row averages V uniformly instead of producing NaN, and the
 kernels use the same constant so the two cannot disagree on what "masked"
@@ -52,6 +53,33 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k_pos = torch.arange(skv, device=q.device)
     mask = attention_mask(q_pos, k_pos, causal, window)
     scores = torch.where(mask[None, None], scores,
+                         torch.full((), _NEG_INF, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return out.to(q.dtype)
+
+
+def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     base_len: torch.Tensor) -> torch.Tensor:
+    """Multi-token verify attention: K query tokens appended to a cache of
+    ``base_len`` valid positions, causal among themselves.
+
+    q: (B, K, H, D); k_cache/v_cache: (B, S, Hkv, D) with the K new tokens'
+    KV already at positions ``base_len .. base_len+K-1``; base_len: () or
+    (B,) integer.  Query j attends positions ``<= base_len + j``; with K == 1
+    this is ``decode_attention(q, k, v, base_len + 1)``.
+    """
+    _, kq, h, d = q.shape
+    s = k_cache.shape[1]
+    kf = _expand_kv(k_cache, h).float()
+    vf = _expand_kv(v_cache, h).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / (d ** 0.5)
+    pos = torch.arange(s, device=q.device)
+    limit = (torch.as_tensor(base_len, device=q.device).reshape(-1, 1)
+             + torch.arange(kq, device=q.device)[None, :])          # (B|1, K)
+    valid = pos[None, None, :] <= limit[..., None]                # (B|1, K, S)
+    scores = torch.where(valid[:, None], scores,
                          torch.full((), _NEG_INF, device=q.device))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf)

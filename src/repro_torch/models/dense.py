@@ -1,21 +1,26 @@
 """Dense decoder-only transformer (the qwen3 family) on tensors.
 
-Port of the paged serving path of ``repro.models.dense``: ``init``,
-right-padded ``prefill`` with ``last_positions``, the KV page pools
-(``init_paged_pools``, ``prefill_to_pages``, ``_scatter_pool_writes``)
-and ``paged_decode_step``.  Public functions keep the reference's layouts:
-weights ``(d_in, d_out)`` stacked on a leading layer axis, pools
+Port of the serving paths of ``repro.models.dense``: ``init``,
+right-padded ``prefill`` with ``last_positions``, the slot cache
+(``init_cache``, ``decode_step`` with (B,) lengths), the KV page pools
+(``init_paged_pools``, ``prefill_to_pages``, ``_scatter_pool_writes``),
+``paged_decode_step`` and the speculative ``paged_verify_step``.  Public
+functions keep the reference's layouts: weights ``(d_in, d_out)`` stacked
+on a leading layer axis, slot caches ``(L, B, C, Hkv, dh)``, pools
 ``(L, P, page, Hkv, dh)``.
 
 Attention goes through ``kernels.ops``: the prefill through the prefill
-kernel (where the reference calls its jnp ``flash_attention``), each paged
-decode step through the paged decode kernel (where the reference gathers
-pages and calls its jnp ``decode_attention``).  The projections and the
-MLP stay ``torch.matmul``, as the reference leaves them to XLA.
+kernel (where the reference calls its jnp ``flash_attention``), a slot
+decode step through the contiguous decode kernel (the reference's jnp
+``decode_attention``), a paged decode or verify step through the paged
+decode or verify kernel (where the reference gathers pages and calls its
+jnp ``decode_attention`` or ``verify_attention``).  The projections and
+the MLP stay ``torch.matmul``, as the reference leaves them to XLA.
 
-Unlike the reference, whose arrays are immutable, the pools are updated in
-place (``index_put_``) so decode never copies them; a caller must not keep
-a view of a pool across steps and expect it unchanged.
+Unlike the reference, whose arrays are immutable, slot caches and pools
+are updated in place (``index_put_``) so decode never copies them; a
+caller must not keep a view of a cache across steps and expect it
+unchanged.
 """
 
 from __future__ import annotations
@@ -165,6 +170,59 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     return logits_of(params, x_last), cache
 
 
+# ---------------------------------------------------------------- slot decode
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               dtype: Optional[torch.dtype] = None,
+               device: torch.device | str = "cpu") -> Dict:
+    """A zero slot cache {"k", "v": (L, batch, cap, Hkv, dh), "length": ()}
+    (cap = ``capacity``, or the window of a sliding-window config)."""
+    cap = (capacity if cfg.sliding_window is None
+           else min(capacity, cfg.sliding_window))
+    shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.head_dim)
+    dt = dtype or _dt(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "length": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
+                token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """One decode step against a slot cache, each row at its own depth.
+
+    cache: {"k"/"v": (L, B, C, Hkv, dh), "length": (B,) int32}; token:
+    (B, 1).  Row b's new KV goes to slot ``length[b] % C`` of its cache row,
+    in place, then it attends its ``min(length[b] + 1, C)`` valid
+    positions.  Returns (logits (B, 1, padded_vocab), cache with length +
+    1).  The reference's scalar-length lock-step branch (wave batching and
+    the sequence-sharded decode) is ROADMAP Queue A items 7 and 10; int8
+    caches are item 5."""
+    length = cache["length"]
+    if length.ndim != 1:
+        raise NotImplementedError(
+            "scalar cache length (lock-step wave decode): ROADMAP Queue A "
+            "items 7 and 10; the slot engine passes (B,) lengths")
+    if cfg.kv_quant:
+        raise NotImplementedError("int8 slot caches: ROADMAP Queue A item 5")
+    x = params["embed"][token]
+    cap = cache["k"].shape[2]
+    lens = length.long()
+    rows = torch.arange(lens.shape[0], device=lens.device)
+    slot = lens % cap
+    n_valid = torch.clamp(lens + 1, max=cap).to(torch.int32)
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        kc, vc = cache["k"][l], cache["v"][l]
+        h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
+        q, k, v = _project_qkv(lp, cfg, h, lens[:, None])
+        kc.index_put_((rows, slot), k[:, 0])
+        vc.index_put_((rows, slot), v[:, 0])
+        attn = ops.decode(q, kc, vc, n_valid)
+        x = _finish_block(lp, cfg, x, attn)
+    x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
+    return logits_of(params, x), {"k": cache["k"], "v": cache["v"],
+                                  "length": (length + 1).to(length.dtype)}
+
+
 # --------------------------------------------------------------- paged pools
 def init_paged_pools(cfg: ModelConfig, num_pages: int, page_size: int,
                      dtype: Optional[torch.dtype] = None,
@@ -201,11 +259,13 @@ def prefill_to_pages(pools: Dict, kv: Dict,
 
 def _scatter_pool_writes(pools: Dict, l: int, phys_page: torch.Tensor,
                          page_slot: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> None:
-    """Write one new token's KV per row into layer ``l``'s pages, in place.
-    k/v: (B, 1, Hkv, dh); phys_page/page_slot: (B,)."""
+                         v: torch.Tensor, squeeze: bool) -> None:
+    """Write new tokens' KV into layer ``l``'s pages, in place.  k/v:
+    (B, K, Hkv, dh); phys_page/page_slot: (B,) when ``squeeze`` (one token)
+    else (B, K)."""
     for pname, w in (("k_pool", k), ("v_pool", v)):
-        pools[pname][l].index_put_((phys_page, page_slot), w[:, 0])
+        pools[pname][l].index_put_((phys_page, page_slot),
+                                   w[:, 0] if squeeze else w)
 
 
 def paged_decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
@@ -236,10 +296,51 @@ def paged_decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
         lp = _layer(params, l)
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
         q, k, v = _project_qkv(lp, cfg, h, lens[:, None])
-        _scatter_pool_writes(pools, l, phys_page, page_slot, k, v)
+        _scatter_pool_writes(pools, l, phys_page, page_slot, k, v,
+                             squeeze=True)
         attn = ops.paged_decode(q, pools["k_pool"][l], pools["v_pool"][l],
                                 bt, attend)
         x = _finish_block(lp, cfg, x, attn)
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
     return logits_of(params, x), {**pools, "block_tables": bt,
                                   "lengths": attend}
+
+
+def paged_verify_step(params: Dict, cfg: ModelConfig, cache: Dict,
+                      tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """One speculative verify step against paged KV.
+
+    cache as in ``paged_decode_step``; tokens: (B, K), the pending token
+    followed by the drafts.  Token j's KV goes to physical page
+    ``bt[b, (lengths[b]+j) // page]`` (the page index clamped to the table,
+    as the reference clamps) at slot ``(lengths[b]+j) % page``, then every
+    position attends through the paged verify kernel, query j seeing
+    positions ``<= lengths[b] + j``.  Rows riding along resolve to the
+    scratch page 0.  The pools are updated in place.  Returns (logits
+    (B, K, padded_vocab), cache) with ``lengths`` NOT advanced: the engine
+    advances each row by what it accepted.
+    """
+    x = params["embed"][tokens]
+    bt = cache["block_tables"]
+    lengths = cache["lengths"]
+    page = cache["k_pool"].shape[2]
+    maxp = bt.shape[1]
+    b, kq = tokens.shape
+    rows = torch.arange(b, device=bt.device)
+    pos_abs = lengths.long()[:, None] + torch.arange(kq, device=bt.device)
+    page_idx = torch.clamp(pos_abs // page, max=maxp - 1)
+    phys_page = bt[rows[:, None], page_idx].long()
+    page_slot = pos_abs % page
+    pools = {n: cache[n] for n in _POOLS}
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
+        q, k, v = _project_qkv(lp, cfg, h, pos_abs)
+        _scatter_pool_writes(pools, l, phys_page, page_slot, k, v,
+                             squeeze=False)
+        attn = ops.paged_verify(q, pools["k_pool"][l], pools["v_pool"][l],
+                                bt, lengths)
+        x = _finish_block(lp, cfg, x, attn)
+    x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
+    return logits_of(params, x), {**pools, "block_tables": bt,
+                                  "lengths": lengths}

@@ -1,14 +1,13 @@
 """Family registry of the port: the uniform interface the engine calls.
 
-Port of ``repro.models.registry`` for the dense family's paged serving
-path.  The other families (moe, hybrid, ssm, audio, vlm) are ROADMAP
-Queue A item 7; the slot ``decode_step`` waits for the ``flash_decode``
-port (Queue B row 4) and ``paged_verify`` for ``spec_verify`` (row 3).
+Port of ``repro.models.registry`` for the dense family's serving paths:
+slot decode, paged decode and the speculative paged verify.  The other
+families (moe, hybrid, ssm, audio, vlm) are ROADMAP Queue A item 7.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -19,14 +18,23 @@ from repro_torch.models.config import ModelConfig
 class Family(NamedTuple):
     init: Callable              # (cfg, generator, device, dtype) -> params
     prefill: Callable           # -> (last logits, contiguous cache)
-    paged_decode: Callable      # (params, cfg, cache, token) -> logits, cache
-    init_paged_pools: Callable
-    prefill_to_pages: Callable
+    decode_step: Callable       # (params, cfg, cache, token) -> logits, cache
+    slot_decode: bool = False   # per-row cache lengths + prefill
+                                # last_positions (slot continuous batching)
+    # paged-KV capability: set together or not at all
+    paged_decode: Optional[Callable] = None
+    init_paged_pools: Optional[Callable] = None
+    prefill_to_pages: Optional[Callable] = None
+    # speculative verify of K tokens against the pools (needs paged)
+    paged_verify: Optional[Callable] = None
 
 
 FAMILIES: Dict[str, Family] = {
-    "dense": Family(dense.init, dense.prefill, dense.paged_decode_step,
-                    dense.init_paged_pools, dense.prefill_to_pages),
+    "dense": Family(dense.init, dense.prefill, dense.decode_step,
+                    slot_decode=True, paged_decode=dense.paged_decode_step,
+                    init_paged_pools=dense.init_paged_pools,
+                    prefill_to_pages=dense.prefill_to_pages,
+                    paged_verify=dense.paged_verify_step),
 }
 
 

@@ -1,7 +1,9 @@
-"""Serving layer of the port: the paged engine, its executor, sampling."""
+"""Serving layer of the port: the slot, paged and speculative engine, its
+executors, sampling."""
 
 from repro_torch.serving.engine import Engine, EngineStats, GenRequest
-from repro_torch.serving.executor import EngineExecutor
+from repro_torch.serving.executor import EngineExecutor, SpecEngineExecutor
 from repro_torch.serving.sampling import sample
 
-__all__ = ["Engine", "EngineStats", "EngineExecutor", "GenRequest", "sample"]
+__all__ = ["Engine", "EngineStats", "EngineExecutor", "GenRequest",
+           "SpecEngineExecutor", "sample"]

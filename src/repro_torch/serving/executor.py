@@ -1,23 +1,26 @@
 """The real-engine backend behind the Executor contract (DESIGN.md §6.1).
 
-Port of ``repro.serving.executor.EngineExecutor``: one paged PyTorch
-``Engine`` behind the same four-method contract as the simulated backends
-(see ``repro_torch.sim.executor``): ``admit(item) -> bool``,
+Port of ``repro.serving.executor``: ``EngineExecutor`` puts one PyTorch
+``Engine`` (slot or paged) and ``SpecEngineExecutor`` a speculative one
+behind the same four-method contract as the simulated backends (see
+``repro_torch.sim.executor``): ``admit(item) -> bool``,
 ``load() -> ExecutorLoad``, ``estimate(prompt, output) -> seconds`` and
 ``bind(loop, on_complete)``, the callback receiving ``(item, started_at,
 first_token_at)``.  There is no ambient event loop: the engine runs in
 wall-clock time, so callers pump ``step()`` or ``drain()`` themselves.
 
-The speculative and disaggregated executors come with their engine
-slices (ROADMAP Queue A item 5).
+The disaggregated executor comes with the KV handoff (ROADMAP Queue A
+item 5).
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Dict, List, Optional
 
 from repro_torch.serving.engine import Engine, EngineStats, GenRequest
-from repro_torch.sim.executor import Executor, ExecutorLoad, paged_admit_ok
+from repro_torch.sim.executor import (Executor, ExecutorLoad, paged_admit_ok,
+                                      spec_expected_tokens)
 
 
 def _pending_gate(snap: Dict[str, int], item: GenRequest,
@@ -41,9 +44,10 @@ class EngineExecutor(Executor):
         # admission bound: queued-but-unstarted work the executor will hold
         # before pushing back on the caller (None = unbounded)
         self.max_pending_tokens = max_pending_tokens
-        # push back at admit() time with the same page-granularity rule the
-        # engine applies at prefill time (paged_admit_ok), so a caller that
-        # respects admit() sees the simulated executor's notion of "full"
+        # paged engines only: push back at admit() time with the same
+        # page-granularity rule the engine applies at prefill time
+        # (paged_admit_ok), so a caller that respects admit() sees the
+        # simulated executor's notion of "full"
         self.gate_on_pages = gate_on_pages
         self._loop = None
         self._on_complete = None
@@ -66,7 +70,7 @@ class EngineExecutor(Executor):
     def admit(self, item: GenRequest) -> bool:
         if self.gate_on_pages or self.max_pending_tokens is not None:
             snap = self.engine.load_snapshot()
-            if self.gate_on_pages:
+            if self.gate_on_pages and self.engine.paged:
                 resident = snap["active_streams"] + snap["queued_streams"] > 0
                 if not paged_admit_ok(snap["free_pages"], len(item.tokens),
                                       snap["page_size"], resident=resident):
@@ -123,3 +127,40 @@ class EngineExecutor(Executor):
         while self.engine.has_work():
             done.extend(self.step())
         return done
+
+
+class SpecEngineExecutor(EngineExecutor):
+    """Speculative decoding behind the Executor contract (DESIGN.md
+    §6.1-spec): an ``EngineExecutor`` over a spec-enabled paged ``Engine``.
+    Admission, paging and driving are inherited; ``load()`` adds
+    ``expected_tokens_per_step`` from the engine's online acceptance-rate
+    EMA, and ``estimate()`` charges the measured draft wall time beside the
+    target's verify wall."""
+
+    def __init__(self, engine: Engine,
+                 max_pending_tokens: Optional[int] = None,
+                 gate_on_pages: bool = False) -> None:
+        if not engine.spec:
+            raise ValueError("SpecEngineExecutor requires a spec-enabled "
+                             "engine (Engine(spec_draft=..., spec_k=...))")
+        super().__init__(engine, max_pending_tokens, gate_on_pages)
+
+    def expected_tokens_per_step(self) -> float:
+        return spec_expected_tokens(self.engine.spec_alpha,
+                                    self.engine.spec_k)
+
+    def load(self) -> ExecutorLoad:
+        return replace(super().load(),
+                       expected_tokens_per_step=self.expected_tokens_per_step())
+
+    def estimate(self, prompt_tokens: int, output_tokens: int) -> float:
+        """Emitted tokens over the target's verify wall PLUS the draft's
+        wall, so a draft that does not pay for itself shows in routing."""
+        st = self.engine.stats
+        wall = st.decode_wall_s + st.draft_wall_s
+        if st.decode_tokens == 0 or wall <= 0:
+            return float("inf")      # no calibration data yet: probe-unknown
+        t = output_tokens / (st.decode_tokens / wall)
+        if st.prefill_tokens > 0 and st.prefill_wall_s > 0:
+            t += prompt_tokens / (st.prefill_tokens / st.prefill_wall_s)
+        return t

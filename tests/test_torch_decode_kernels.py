@@ -1,0 +1,313 @@
+"""Port kernels of the slot and speculative paths: contiguous decode and
+paged multi-token verify, plus the prefill kernel at the draft's width.
+
+CPU cases hand the same numpy inputs (fixed seeds) to the port's plain
+versions (``decode_ref``, ``paged_verify_ref``) and to the JAX package's
+Pallas kernels in interpret mode (``flash_decode_tpu``,
+``flash_paged_verify_tpu``) and jnp oracles, at the tolerances of
+``tests/test_kernels.py`` (fp32 2e-5, bf16 2e-2 absolute).
+
+``gpu`` cases hold each CUDA kernel against its plain version on the card
+(fp32 1e-4: the card sums in another order; bf16 2e-2) and skip without a
+card.  JAX is imported inside the CPU cases only:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_decode_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import (decode_ref, flash_ref, paged_decode_ref,
+                                     paged_verify_ref, verify_ref)
+
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+CUDA_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# test_kernels.py's DECODE_SWEEP: (b, s, h, hkv, d, cache_len, window, bk)
+DECODE_SWEEP = [
+    (1, 512, 4, 4, 64, 512, None, 128),
+    (2, 1024, 8, 2, 64, 700, None, 256),
+    (4, 256, 4, 1, 128, 256, None, 64),
+    (1, 300, 4, 2, 64, 123, None, 128),
+    (2, 512, 8, 2, 64, 400, 128, 128),
+]
+
+# (b, kq, h, hkv, d, page, lengths, table_pages): K in {1, 3, 5}, MQA and
+# GQA, an empty-prefix row; table_pages=None gives each row pages for
+# lengths + K, an int cuts the table there (a rider whose lengths + K
+# passes it)
+VERIFY_CASES = [
+    (2, 1, 4, 2, 64, 16, (40, 25), None),
+    (1, 3, 4, 1, 128, 16, (47,), None),
+    (3, 5, 8, 2, 64, 32, (64, 1, 90), None),
+    (2, 5, 4, 4, 32, 8, (0, 30), None),
+    (2, 5, 8, 2, 64, 16, (29, 3), 2),
+]
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+def _t(x, dt, device="cpu"):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(
+        device=device, dtype=TORCH_DT[dt])
+
+
+def _np(x):
+    return np.asarray(x.float().cpu().numpy())
+
+
+def _decode_inputs(seed, b, s, h, hkv, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, 1, h, d), np.float32),
+            rng.standard_normal((b, s, hkv, d), np.float32),
+            rng.standard_normal((b, s, hkv, d), np.float32))
+
+
+def _verify_inputs(seed, b, kq, h, hkv, d, page, lengths, table_pages):
+    """Random pools and block tables with distinct pages per row covering
+    ``lengths + K`` positions (cut at ``table_pages`` if given); entries
+    past a row's allocation point at the scratch page 0."""
+    rng = np.random.default_rng(seed)
+    alloc = [-(-(ln + kq) // page) for ln in lengths]
+    if table_pages is not None:
+        alloc = [min(a, table_pages) for a in alloc]
+    maxp = (table_pages if table_pages is not None
+            else max(2, max(alloc) + 1))
+    n_pool = 1 + sum(alloc)
+    q = rng.standard_normal((b, kq, h, d), np.float32)
+    kp = rng.standard_normal((n_pool, page, hkv, d), np.float32)
+    vp = rng.standard_normal((n_pool, page, hkv, d), np.float32)
+    bt = np.zeros((b, maxp), np.int32)
+    free = list(range(1, n_pool))
+    for i, a in enumerate(alloc):
+        for j in range(a):
+            bt[i, j] = free.pop()
+    return q, kp, vp, bt, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("case", DECODE_SWEEP)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_decode_ref_matches_jax_kernel_and_oracle(case, dt):
+    """Scalar cache_len (the TPU kernel's) broadcast to (B,) lengths."""
+    import jax.numpy as jnp
+    from repro.kernels.flash_decode import flash_decode_tpu
+    from repro.kernels.ref import decode_ref as jax_decode_ref
+    b, s, h, hkv, d, clen, win, bk = case
+    q, kc, vc = _decode_inputs(sum(case[:5]), b, s, h, hkv, d)
+    jq, jk, jv = (jnp.asarray(x).astype(dt) for x in (q, kc, vc))
+    cl = jnp.asarray(clen, jnp.int32)
+    pallas = flash_decode_tpu(jq, jk, jv, cl, window=win, block_k=bk,
+                              interpret=True)
+    oracle = jax_decode_ref(jq, jk, jv, cl, window=win)
+    lens = torch.full((b,), clen, dtype=torch.int32)
+    got = decode_ref(_t(q, dt), _t(kc, dt), _t(vc, dt), lens, window=win)
+    assert got.dtype == TORCH_DT[dt] and tuple(got.shape) == (b, 1, h, d)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   atol=ATOL[dt], rtol=1e-2)
+
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_decode_ref_per_row_lengths_match_jax_oracle(window):
+    """(B,) lengths as the slot engine passes them, a length-0 row
+    included (it averages V over the whole cache)."""
+    import jax.numpy as jnp
+    from repro.models.attention import decode_attention
+    b, s, h, hkv, d = 4, 96, 8, 2, 64
+    q, kc, vc = _decode_inputs(9, b, s, h, hkv, d)
+    lens = np.asarray([0, 1, 50, 96], np.int32)
+    want = decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                            jnp.asarray(lens), window=window)
+    got = ops.decode(_t(q, "float32"), _t(kc, "float32"), _t(vc, "float32"),
+                     torch.from_numpy(lens), window=window)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("case", VERIFY_CASES)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_paged_verify_ref_matches_jax_kernel_and_oracle(case, dt):
+    import jax.numpy as jnp
+    from repro.kernels.ref import paged_verify_ref as jax_verify_ref
+    from repro.kernels.spec_verify import flash_paged_verify_tpu
+    b, kq, h, hkv, d, page, lengths, tp = case
+    q, kp, vp, bt, ln = _verify_inputs(sum(lengths) + b + kq, *case[:7], tp)
+    jq, jkp, jvp = (jnp.asarray(x).astype(dt) for x in (q, kp, vp))
+    jbt, jln = jnp.asarray(bt), jnp.asarray(ln)
+    pallas = flash_paged_verify_tpu(jq, jkp, jvp, jbt, jln, interpret=True)
+    oracle = jax_verify_ref(jq, jkp, jvp, jbt, jln)
+    got = paged_verify_ref(_t(q, dt), _t(kp, dt), _t(vp, dt),
+                           torch.from_numpy(bt), torch.from_numpy(ln))
+    assert got.dtype == TORCH_DT[dt] and tuple(got.shape) == (b, kq, h, d)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   atol=ATOL[dt], rtol=1e-2)
+
+
+def test_verify_ref_reduces_to_decode_and_to_causal_prefill():
+    """K == 1 is paged decode at lengths + 1; K tokens over a contiguous
+    cache are causal attention with a query offset."""
+    from repro_torch.models.attention import reference_attention
+    q, kp, vp, bt, ln = _verify_inputs(3, 2, 1, 4, 2, 64, 16, (40, 25), None)
+    a = paged_verify_ref(*(_t(x, "float32") for x in (q, kp, vp)),
+                         torch.from_numpy(bt), torch.from_numpy(ln))
+    b_ = paged_decode_ref(*(_t(x, "float32") for x in (q, kp, vp)),
+                          torch.from_numpy(bt), torch.from_numpy(ln + 1))
+    torch.testing.assert_close(a, b_, atol=1e-6, rtol=0)
+    rng = np.random.default_rng(4)
+    kq, base = 4, 37
+    qv = torch.from_numpy(rng.standard_normal((2, kq, 4, 64), np.float32))
+    kc, vc = (torch.from_numpy(rng.standard_normal((2, base + kq + 5, 2, 64),
+                                                   np.float32))
+              for _ in range(2))
+    got = verify_ref(qv, kc, vc, torch.tensor([base, base]))
+    want = reference_attention(qv, kc[:, :base + kq], vc[:, :base + kq],
+                               causal=True, q_offset=base)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+def test_ops_cpu_tensors_take_the_plain_versions_of_both():
+    ops.reset_launch_counts()
+    q, kc, vc = _decode_inputs(1, 2, 40, 4, 2, 64)
+    lens = torch.tensor([0, 33], dtype=torch.int32)
+    out = ops.decode(_t(q, "float32"), _t(kc, "float32"), _t(vc, "float32"),
+                     lens)
+    torch.testing.assert_close(out, decode_ref(
+        _t(q, "float32"), _t(kc, "float32"), _t(vc, "float32"), lens))
+    q, kp, vp, bt, ln = _verify_inputs(2, 2, 3, 4, 2, 64, 8, (9, 0), None)
+    outv = ops.paged_verify(_t(q, "float32"), _t(kp, "float32"),
+                            _t(vp, "float32"), torch.from_numpy(bt),
+                            torch.from_numpy(ln))
+    assert torch.isfinite(outv).all() and tuple(outv.shape) == q.shape
+    assert set(ops.launch_counts()) == {"flash_attention", "paged_decode",
+                                        "flash_decode", "paged_verify"}
+    assert not any(ops.launch_counts().values())
+
+
+# ------------------------------------------------------------------ card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# (b, s, h, hkv, d, lengths, window): the CPU sweep's shapes at the built
+# widths, the slot engine's qwen3-8b and draft shapes, length-0 rows, a
+# window below and one past the cache
+GPU_DECODE = [(b, s, h, hkv, dd, (clen,) * b, win)
+              for b, s, h, hkv, _, clen, win, _ in DECODE_SWEEP
+              for dd in (64, 128)] + [
+    (4, 64, 32, 8, 128, (25, 1, 33, 0), None),     # qwen3-8b slot decode
+    (4, 72, 2, 1, 64, (25, 1, 33, 0), None),       # the draft's
+    (3, 300, 32, 8, 128, (300, 0, 17), 64),
+    (2, 100, 16, 1, 64, (200, 3), 50),             # window past the cache
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_DECODE)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_decode_kernel_matches_plain_on_card(cuda, case, dt):
+    b, s, h, hkv, d, lengths, win = case
+    q, kc, vc = (_t(x, dt, cuda) for x in _decode_inputs(
+        s + d + b, b, s, h, hkv, d))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()["flash_decode"]
+    got = ops.decode(q, kc, vc, ln, window=win)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_decode"] == before + 1
+    want = decode_ref(q, kc, vc, ln, window=win)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
+                               rtol=1e-2)
+
+
+GPU_VERIFY = [(b, kq, h, hkv, 128, page, lengths, tp)
+              for b, kq, h, hkv, _, page, lengths, tp in VERIFY_CASES] + [
+    (4, 5, 32, 8, 128, 16, (28, 1, 40, 0), None),  # qwen3-8b spec verify
+    (4, 5, 32, 8, 128, 16, (30, 31, 9, 0), 2),     # riders past the table
+    (2, 2, 32, 1, 128, 16, (700, 3), None),        # 64 rows per block
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_VERIFY)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_verify_kernel_matches_plain_on_card(cuda, case, dt):
+    b, kq, h, hkv, d, page, lengths, tp = case
+    q, kp, vp, bt, ln = _verify_inputs(sum(lengths) + kq, *case[:7], tp)
+    q, kp, vp = (_t(x, dt, cuda) for x in (q, kp, vp))
+    bt, ln = torch.from_numpy(bt).to(cuda), torch.from_numpy(ln).to(cuda)
+    before = ops.launch_counts()["paged_verify"]
+    got = ops.paged_verify(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_verify"] == before + 1
+    want = paged_verify_ref(q, kp, vp, bt, ln)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
+                               rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_verify_kernel_with_one_token_is_paged_decode(cuda, dt):
+    q, kp, vp, bt, ln = _verify_inputs(5, 4, 1, 32, 8, 128, 16,
+                                       (28, 1, 40, 0), None)
+    q, kp, vp = (_t(x, dt, cuda) for x in (q, kp, vp))
+    bt, ln = torch.from_numpy(bt).to(cuda), torch.from_numpy(ln).to(cuda)
+    got = ops.paged_verify(q, kp, vp, bt, ln)
+    want = ops.paged_decode(q, kp, vp, bt, ln + 1)
+    np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
+                               rtol=1e-2)
+
+
+# the draft's prefill: H=2, Hkv=1, D=64, and the CPU prefill cases' masks
+GPU_PREFILL_64 = [(4, 32, 2, 1, None, True), (1, 1000, 2, 1, None, True),
+                  (2, 100, 8, 2, 64, True), (2, 77, 4, 4, None, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_PREFILL_64)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_kernel_at_the_draft_width_on_card(cuda, case, dt):
+    b, s, h, hkv, win, causal = case
+    rng = np.random.default_rng(s + h)
+    q, k, v = (_t(rng.standard_normal(shape, np.float32), dt, cuda)
+               for shape in ((b, s, h, 64), (b, s, hkv, 64), (b, s, hkv, 64)))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = flash_ref(q, k, v, causal=causal, window=win)
+    np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
+                               rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_new_wrappers_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((2, 1, 4, 32), device=cuda)
+    kc = torch.zeros((2, 8, 2, 32), device=cuda)
+    ln = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.decode(q, kc, kc, ln)
+    q = torch.zeros((2, 1, 4, 64), device=cuda)
+    kc = torch.zeros((2, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode(q, kc, kc, ln.long())
+    qv = torch.zeros((1, 5, 32, 64), device=cuda)
+    pool = torch.zeros((2, 16, 8, 64), device=cuda)
+    bt = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_verify(qv, pool, pool, bt, ln[:1])
+    qv = torch.zeros((1, 17, 32, 128), device=cuda)
+    pool = torch.zeros((2, 16, 8, 128), device=cuda)
+    with pytest.raises(ValueError, match="<= 64"):
+        ops.paged_verify(qv, pool, pool, bt, ln[:1])

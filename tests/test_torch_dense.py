@@ -147,3 +147,79 @@ def test_seeded_init_draws_the_reference_distributions():
         p["layers"]["q_norm"]))
     again = dense.init(cfg, torch.Generator().manual_seed(0), "cpu")
     assert torch.equal(again["lm_head"], p["lm_head"])
+
+
+def test_slot_decode_steps_match(model):
+    """Slot decode with per-row lengths: rows of different depths, one at
+    length 0 (an empty slot riding along), five steps; logits, lengths and
+    the written cache must agree."""
+    cfg_j, cfg_t, pj, pt = model
+    rng = np.random.default_rng(2)
+    toks, last = _prompts(rng, (20, 9, 32), 32, cfg_j.vocab_size,
+                          cfg_j.eos_id)
+    _, cj = jdense.prefill(pj, cfg_j, {"tokens": jnp.asarray(toks)},
+                           capacity=48, last_positions=jnp.asarray(last))
+    _, ct = dense.prefill(pt, cfg_t, torch.from_numpy(toks).long(),
+                          capacity=48, last_positions=torch.from_numpy(last))
+    lens = np.asarray([20, 9, 0], np.int32)
+    cache_j = {"k": cj["k"], "v": cj["v"], "length": jnp.asarray(lens)}
+    cache_t = {"k": ct["k"].clone(), "v": ct["v"].clone(),
+               "length": torch.from_numpy(lens)}
+    for step in range(5):
+        tok = rng.integers(2, cfg_j.vocab_size, size=(3, 1)).astype(np.int32)
+        lj, cache_j = jdense.decode_step(pj, cfg_j, cache_j, jnp.asarray(tok))
+        lt, cache_t = dense.decode_step(pt, cfg_t, cache_t,
+                                        torch.from_numpy(tok).long())
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=2e-5,
+                                   err_msg=f"step {step}")
+        np.testing.assert_array_equal(cache_t["length"].numpy(),
+                                      np.asarray(cache_j["length"]))
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache_t[name].numpy(),
+                                   np.asarray(cache_j[name]), atol=2e-5)
+    empty = dense.init_cache(cfg_t, 3, 40)
+    assert empty["k"].shape == tuple(jdense.init_cache(cfg_j, 3, 40)["k"]
+                                     .shape)
+
+
+def test_paged_verify_steps_match(model):
+    """Two verify steps of K = 5 tokens over pages with a rider row whose
+    lengths + K pass its table (its writes clamp into the last column):
+    logits at every position, and the KV on the real rows' pages."""
+    cfg_j, cfg_t, pj, pt = model
+    page, n_pages, kq = 16, 8, 5
+    rng = np.random.default_rng(5)
+    toks, last = _prompts(rng, (20, 9), 32, cfg_j.vocab_size, cfg_j.eos_id)
+    _, cj = jdense.prefill(pj, cfg_j, {"tokens": jnp.asarray(toks)},
+                           capacity=32, last_positions=jnp.asarray(last))
+    _, ct = dense.prefill(pt, cfg_t, torch.from_numpy(toks).long(),
+                          capacity=32, last_positions=torch.from_numpy(last))
+    phys = np.asarray([[1, 2], [3, 0]], np.int32)
+    pools_j = jdense.prefill_to_pages(
+        jdense.init_paged_pools(cfg_j, n_pages, page),
+        {"k": cj["k"], "v": cj["v"]}, jnp.asarray(phys))
+    pools_t = dense.prefill_to_pages(
+        dense.init_paged_pools(cfg_t, n_pages, page), ct,
+        torch.from_numpy(phys))
+    bt = np.asarray([[1, 2, 4], [3, 5, 0], [0, 0, 0]], np.int32)
+    lens = np.asarray([20, 9, 44], np.int32)
+    for step in range(2):
+        tok = rng.integers(2, cfg_j.vocab_size, size=(3, kq)).astype(np.int32)
+        cache_j = {**pools_j, "block_tables": jnp.asarray(bt),
+                   "lengths": jnp.asarray(lens)}
+        cache_t = {**pools_t, "block_tables": torch.from_numpy(bt),
+                   "lengths": torch.from_numpy(lens)}
+        lj, cache_j = jdense.paged_verify_step(pj, cfg_j, cache_j,
+                                               jnp.asarray(tok))
+        lt, cache_t = dense.paged_verify_step(pt, cfg_t, cache_t,
+                                              torch.from_numpy(tok).long())
+        pools_j = {n: cache_j[n] for n in ("k_pool", "v_pool")}
+        assert lt.shape == lj.shape == (3, kq, cfg_j.padded_vocab)
+        np.testing.assert_allclose(lt[:2].numpy(), np.asarray(lj)[:2],
+                                   atol=2e-5, err_msg=f"step {step}")
+        np.testing.assert_array_equal(cache_t["lengths"].numpy(), lens)
+        lens = lens + np.asarray([2, 1, 0], np.int32)   # accepted + pending
+    for name in ("k_pool", "v_pool"):
+        np.testing.assert_allclose(pools_t[name][:, 1:6].numpy(),
+                                   np.asarray(pools_j[name])[:, 1:6],
+                                   atol=2e-5)

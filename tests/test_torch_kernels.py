@@ -136,7 +136,8 @@ def test_ops_cpu_tensors_take_the_plain_versions():
                             _t(vp, "float32"), torch.from_numpy(bt),
                             torch.from_numpy(ln))
     assert torch.isfinite(outp).all()          # the length-0 row: mean of V
-    assert ops.launch_counts() == {"flash_attention": 0, "paged_decode": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "paged_decode": 0,
+                                   "flash_decode": 0, "paged_verify": 0}
 
 
 def test_ops_reject_other_devices():
@@ -155,8 +156,9 @@ def cuda():
     return torch.device("cuda")
 
 
-# the kernels are built for head width 128 only (qwen3-8b's): the card cases
-# take the CPU cases' head ratios, lengths and masks at that width
+# the card cases take the CPU cases' head ratios, lengths and masks at head
+# width 128 (qwen3-8b's; the prefill kernel's width 64, the draft's, is
+# held in tests/test_torch_decode_kernels.py)
 GPU_PREFILL = [(b, s, h, hkv, 128, win, causal)
                for b, s, h, hkv, _, win, causal, _, _ in PREFILL_CASES] + [
     (4, 32, 32, 8, 128, None, True),           # qwen3-8b serve prefill
@@ -226,7 +228,7 @@ def test_paged_kernel_matches_plain_on_card(cuda, case, dt):
 
 @pytest.mark.gpu
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
-    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    q = torch.zeros((1, 8, 4, 32), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ops.attention(q, q[:, :, :2], q[:, :, :2])
     q = torch.zeros((1, 8, 4, 128), device=cuda, dtype=torch.float16)

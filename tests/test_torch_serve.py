@@ -3,9 +3,12 @@
 ``repro_torch.launch.serve.run`` on the CPU with weights bridged from
 ``jax.random`` must reproduce the reference scenario exactly: the
 protocol's assignment of requests to nodes, the credit balances, and
-every request's greedy tokens from the replay on paged engines (the
-reference replay is ``repro.core.Network.run`` plus ``EngineExecutor``s,
-as ``repro.launch.serve`` drives them).
+every request's greedy tokens from the replay, on slot engines (the
+driver's default), paged engines and speculative engines with the shared
+``cfg.draft()`` model (the reference replay is ``repro.core.Network.run``
+plus ``EngineExecutor``s or ``SpecEngineExecutor``s, as
+``repro.launch.serve`` drives them with no flag, ``--paged`` and
+``--spec``).
 """
 
 from typing import Dict, List
@@ -18,7 +21,8 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.core import DuelParams, Network, Node, NodePolicy
 from repro.models import registry as jregistry
-from repro.serving import Engine, EngineExecutor, GenRequest
+from repro.serving import (Engine, EngineExecutor, GenRequest,
+                           SpecEngineExecutor)
 from repro.sim import make_profile
 from repro.sim.workload import Request
 from repro_torch.configs import get_config
@@ -26,24 +30,31 @@ from repro_torch.launch import serve
 from repro_torch.models import bridge
 
 NODES, REQUESTS, MAX_NEW, SEED, PROMPT = 2, 6, 6, 0, 24
+DRAFT_SEED, SPEC_K = 10_000, 4
 
 
 def _jax_params(i, cfg):
     return jregistry.init(jax.random.PRNGKey(i), cfg)
 
 
-def _reference_run(cfg) -> Dict:
+def _reference_run(cfg, mode) -> Dict:
     """The reference driver's scenario (``repro.launch.serve.main`` with
-    ``--paged``), returning what it prints as data."""
+    no flag, ``--paged`` or ``--spec``), returning what it prints as
+    data."""
     rng = np.random.default_rng(SEED)
     net = Network(mode="decentralized", seed=SEED,
                   duel=DuelParams(p_d=0.2, k_judges=1), init_balance=100.0)
+    draft = None
+    if mode == "spec":
+        draft = (cfg.draft(), _jax_params(DRAFT_SEED, cfg.draft()))
     executors = {}
     for i in range(NODES):
         nid = f"node{i+1}"
-        executors[nid] = EngineExecutor(Engine(
-            cfg, _jax_params(i, cfg), max_batch=4, bucket=32, seed=i,
-            paged=True))
+        engine = Engine(cfg, _jax_params(i, cfg), max_batch=4, bucket=32,
+                        seed=i, paged=mode != "slot", spec_draft=draft,
+                        spec_k=SPEC_K)
+        executors[nid] = (SpecEngineExecutor(engine) if mode == "spec"
+                          else EngineExecutor(engine))
         net.add_node(Node(nid, make_profile("qwen3-8b", "RTX3090", "sglang",
                                             quality=0.4 + 0.15 * i),
                           policy=NodePolicy(offload_util_threshold=0.15,
@@ -74,12 +85,14 @@ def _reference_run(cfg) -> Dict:
                          for nid, idxs in by_exec.items()},
             "balances": {n: net.ledger_balance(n) for n in net.nodes},
             "results": {r.rid: np.asarray(r.result) for r in done},
+            "stats": {nid: executors[nid].engine_stats() for nid in by_exec},
             "slo_attainment": m.slo_attainment()}
 
 
-@pytest.fixture(scope="module")
-def runs():
+@pytest.fixture(scope="module", params=["paged", "slot", "spec"])
+def runs(request):
     torch.set_num_threads(2)
+    mode = request.param
     cfg_j = jax_get_config("qwen3-8b").smoke().replace(dtype="float32")
     cfg_t = get_config("qwen3-8b").smoke().replace(dtype="float32")
 
@@ -87,14 +100,20 @@ def runs():
         tree = jax.tree_util.tree_map(np.asarray, _jax_params(i, cfg_j))
         return bridge.params_from_jax(tree, cfg, device)
 
+    def draft_params_fn(cfg, device):
+        tree = jax.tree_util.tree_map(
+            np.asarray, _jax_params(DRAFT_SEED, cfg_j.draft()))
+        return bridge.params_from_jax(tree, cfg, device)
+
     port = serve.run(cfg_t, nodes=NODES, requests=REQUESTS, max_new=MAX_NEW,
-                     seed=SEED, device="cpu",
-                     params_fn=params_fn, verbose=False)
-    return _reference_run(cfg_j), port
+                     seed=SEED, device="cpu", mode=mode, spec_k=SPEC_K,
+                     params_fn=params_fn, draft_params_fn=draft_params_fn,
+                     verbose=False)
+    return mode, _reference_run(cfg_j, mode), port
 
 
 def test_same_protocol_assignment_and_balances(runs):
-    ref, port = runs
+    _, ref, port = runs
     assert port["assigned"] == ref["assigned"]
     assert port["balances"] == ref["balances"]
     assert port["slo_attainment"] == ref["slo_attainment"]
@@ -102,9 +121,15 @@ def test_same_protocol_assignment_and_balances(runs):
 
 
 def test_same_tokens_for_every_request(runs):
-    ref, port = runs
+    mode, ref, port = runs
     assert port["results"].keys() == ref["results"].keys()
     for rid, toks in ref["results"].items():
         np.testing.assert_array_equal(port["results"][rid], toks,
                                       err_msg=rid)
     assert port["tokens"] == sum(len(t) for t in ref["results"].values())
+    for nid, st in ref["stats"].items():
+        got = port["stats"][nid]
+        assert (got.decode_tokens, got.decode_steps, got.spec_drafted,
+                got.spec_accepted) == (st.decode_tokens, st.decode_steps,
+                                       st.spec_drafted, st.spec_accepted)
+        assert (got.spec_steps > 0) == (mode == "spec")
