@@ -39,7 +39,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    step of median attended length with that step's own table and lengths.
 
 Times (``ms``, ``plain_ms``, ``library_ms``) are device time per call from
-``torch.profiler`` over repeated calls on the same inputs (warm L2);
+``torch.profiler`` over repeated calls on the same inputs (warm L2) or,
+where the profiler records no device activity three times running, from
+CUDA events around calls queued behind a spinning kernel (``timed_by``);
 ``call_ms`` is the kernel wrapper's time per call from CUDA events around
 back-to-back calls, which is the host's call rate where that is slower.
 
@@ -114,30 +116,57 @@ def call_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call: the summed duration of the device
-    activity ``torch.profiler`` records over ``iters`` calls."""
+def queued_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call from CUDA events around ``iters`` calls
+    queued behind a kernel that spins the device for ~0.1 s, so that the
+    host has queued them all before the first one starts: device time,
+    gaps between back-to-back kernels included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)        # clock cycles
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters: int, attempts: int = 3) -> tuple[float, str]:
+    """Mean device milliseconds per call and how they were timed: the
+    summed duration of the device activity ``torch.profiler`` records over
+    ``iters`` calls.  The profiler now and then hands back a session
+    without any device activity; such a session is run again, and after
+    ``attempts`` empty ones the calls are timed by ``queued_ms``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device activity")
-    return us / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3, "profiler"
+    log(f"  the profiler recorded no device activity in {attempts} sessions:"
+        f" timed by CUDA events behind a spinning kernel instead")
+    return queued_ms(fn, iters), "cuda_events"
 
 
 def timings(kernel, plain, library, iters: int) -> dict:
     slow = max(3, iters // 5)             # the plain version is slow
-    return dict(ms=device_ms(kernel, iters), call_ms=call_ms(kernel, iters),
-                plain_ms=device_ms(plain, slow),
-                library_ms=device_ms(library, iters))
+    out, timed_by = {}, {}
+    for key, fn, n in (("ms", kernel, iters), ("plain_ms", plain, slow),
+                       ("library_ms", library, iters)):
+        out[key], timed_by[key] = device_ms(fn, n)
+    return dict(out, call_ms=call_ms(kernel, iters), timed_by=timed_by)
 
 
 def bound(nbytes: float, flops: float, dt: str) -> dict:
@@ -379,7 +408,9 @@ def show(name, r) -> None:
         f"max_err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} ms "
         f"(call {r['call_ms']:.4f}) plain {r['plain_ms']:.4f} ms sdpa "
         f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
-        f"({r['bound_by']})  [{r['shape']}]")
+        f"({r['bound_by']})  [{r['shape']}]"
+        + "".join(f" {k} by {v}" for k, v in r["timed_by"].items()
+                  if v != "profiler"))
 
 
 def phase_kernels():
@@ -806,7 +837,8 @@ def main() -> int:
             launches=launches[phase][entry], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            call_ms=r["call_ms"], shape=r["shape"], dtype=r["dtype"]))
+            call_ms=r["call_ms"], timed_by=r["timed_by"], shape=r["shape"],
+            dtype=r["dtype"]))
     log(f"total {time.perf_counter() - t_all:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
