@@ -6,8 +6,9 @@
 Phases, each of which raises (exit code != 0) when it fails:
 
 1. print the card's name and power limit (``nvidia-smi``) and build the
-   four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   each, started together);
+   four CUDA sources from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
+   each, started together; six kernels: paged decode and paged verify each
+   have an fp-page and an int8-page entry point);
 2. hold each kernel against its plain PyTorch version on the card at
    qwen3-8b widths (H=32, Hkv=8, D=128, page 16) and, for the prefill and
    contiguous decode kernels, at the speculative draft's (H=2, Hkv=1,
@@ -15,7 +16,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    (float32: the card sums in another order) and 2e-2 (bfloat16) -- and
    time the kernel, the plain version and, as a yardstick the port never
    calls, one ``scaled_dot_product_attention`` on the same (for paged
-   kernels: gathered) inputs with a length mask;
+   kernels: gathered; for int8 pages: gathered and dequantized) inputs with
+   a length mask.  The verify kernels also run at K = 32 and 33 (128 and
+   132 query rows per kv head, tiled 64 at a time), and at K = 1 each must
+   equal its paged decode kernel at ``lengths + 1``;
 3. model consistency at full width: qwen3-8b, all 36 layers, float32.  A
    paged engine serves two requests, and the logits of every paged decode
    step must match a fresh prefill over the same tokens within 1e-3 *
@@ -23,20 +27,31 @@ Phases, each of which raises (exit code != 0) when it fails:
    target itself (every draft accepted) serve the same requests, their
    slot-decode and verify logits (every one of the K positions) held to
    fresh prefills the same way, and all three engines' greedy tokens must
-   be identical;
+   be identical.  The same three engines on int8 KV: int8 slot-decode and
+   int8 verify logits are held to the int8 paged-decode logits of the same
+   token history (all attend the same quantized values) within 1e-3 *
+   max|logit|, and their greedy tokens must be identical.  A prefix-cache
+   engine serves two waves sharing a 48-token prefix: the warm prefill's
+   logits and the decode steps after it are held to fresh prefills;
 4. the main paths, through ``repro_torch.launch.serve.run`` -- the
    decentralized protocol assigns 8 requests and two nodes serve them with
    full-width qwen3-8b (36 layers, bfloat16, random weights seeded per
    node): [4] on paged engines, [4b] on slot engines (the driver's
    default), [4c] on speculative paged engines with the ``cfg.draft()``
-   model, spec_k 4.  Every request must return tokens, and every kernel of
-   the phase's path must have launched: the launch counts are zeroed just
-   before each run and read just after it, and the shapes, tables and
-   lengths the run hands each kernel are recorded.  Each phase reruns its
-   scenario under ``torch.profiler`` for the device's busy share;
+   model, spec_k 4, [4d] on int8 paged engines (``--kv-quant``), [4e] on
+   int8 speculative engines (``--spec --kv-quant``); then [4f] the prefix
+   cache on ``Engine(paged=True, prefix_cache=True)`` with fp and int8
+   pages, whose second wave must hit the cache and whose warm prefill
+   verifies more than 16 tokens a row.  Every request must return tokens,
+   and every kernel of the phase's path must have launched: the launch
+   counts are zeroed just before each run and read just after it, and the
+   shapes, tables and lengths the run hands each kernel are recorded.
+   Each phase reruns its scenario under ``torch.profiler`` for the
+   device's busy share;
 5. each kernel against its plain version again, at the shapes its serve
    phase gave it: the most frequent prefill shape, and the decode or verify
-   step of median attended length with that step's own table and lengths.
+   step of median attended length with that step's own table and lengths;
+   the verify kernels also at phase 4f's warm prefill.
 
 Times (``ms``, ``plain_ms``, ``library_ms``) are device time per call from
 ``torch.profiler`` over repeated calls on the same inputs (warm L2) or,
@@ -85,13 +100,29 @@ ENTRIES = {  # entry: (kernel in ops.KERNELS, head width, serve phase)
     "flash_attention_d64": ("flash_attention", 64, "4c"),
     "flash_decode_d64": ("flash_decode", 64, "4c"),
     "paged_verify": ("paged_verify", 128, "4c"),
+    "paged_decode_int8": ("paged_decode_int8", 128, "4d"),
+    "paged_verify_int8": ("paged_verify_int8", 128, "4e"),
 }
-PHASE_MODE = {"4": "paged", "4b": "slot", "4c": "spec"}
+# serve phase: (engine mode, int8 KV)
+PHASE_MODE = {"4": ("paged", False), "4b": ("slot", False),
+              "4c": ("spec", False), "4d": ("paged", True),
+              "4e": ("spec", True)}
 # (kernel, head width) pairs each serve phase's path must launch
 PATHS = {"4": {("flash_attention", 128), ("paged_decode", 128)},
          "4b": {("flash_attention", 128), ("flash_decode", 128)},
          "4c": {("flash_attention", 128), ("flash_attention", 64),
-                ("flash_decode", 64), ("paged_verify", 128)}}
+                ("flash_decode", 64), ("paged_verify", 128)},
+         "4d": {("flash_attention", 128), ("paged_decode_int8", 128)},
+         "4e": {("flash_attention", 128), ("flash_attention", 64),
+                ("flash_decode", 64), ("paged_verify_int8", 128)},
+         "4f": {("flash_attention", 128), ("paged_decode", 128),
+                ("paged_verify", 128), ("paged_decode_int8", 128),
+                ("paged_verify_int8", 128)}}
+KERNEL_OPS = {  # kernel: the ops entry point the model calls for it
+    "flash_attention": "attention", "paged_decode": "paged_decode",
+    "flash_decode": "decode", "paged_verify": "paged_verify",
+    "paged_decode_int8": "paged_decode_quant",
+    "paged_verify_int8": "paged_verify_quant"}
 
 
 def log(*a) -> None:
@@ -294,9 +325,13 @@ def fresh_tables(lengths, width=None):
     return bt
 
 
-def _pool(bt, lengths, kq, dt, seed):
-    """q (B, kq, H, D) and random pools holding every page ``bt`` names."""
+def _pool(bt, lengths, kq, dt, seed, quant=False):
+    """q (B, kq, H, D), random pools holding every page ``bt`` names --
+    (k, v) of q's dtype, or with ``quant`` (k, v, k_scale, v_scale): the
+    same random values quantized to int8 pages and bf16 scales on the card
+    by the port's ``kv_quantize`` -- the table and the lengths."""
     import torch
+    from repro_torch.models.attention import kv_quantize
     dtype = getattr(torch, dt)
     g = torch.Generator("cuda").manual_seed(seed)
     n_pool = int(bt.max()) + 1
@@ -304,31 +339,64 @@ def _pool(bt, lengths, kq, dt, seed):
                     device="cuda").to(dtype)
     kp, vp = (torch.randn((n_pool, PAGE, HKV, D), generator=g,
                           device="cuda").to(dtype) for _ in range(2))
-    return (q, kp, vp, torch.from_numpy(bt).cuda(),
+    pools = (kp, vp)
+    if quant:
+        (kq_, ks), (vq_, vs) = kv_quantize(kp), kv_quantize(vp)
+        pools = (kq_, vq_, ks, vs)
+    return (q, pools, torch.from_numpy(bt).cuda(),
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
-def paged_case(name, bt, lengths, dt, *, iters=100):
-    """The paged decode kernel on block table ``bt`` (numpy int32
-    (B, maxp)) and ``lengths``, over a random pool holding every page the
-    table names."""
+def _paged_fns(verify, quant):
+    """The kernel wrapper and plain version of paged decode or verify, fp
+    or int8 pages."""
+    from repro_torch.kernels import paged_decode, paged_verify, ref
+    if verify:
+        return ((paged_verify.paged_verify_int8_cuda,
+                 ref.paged_verify_quant_ref) if quant else
+                (paged_verify.paged_verify_cuda, ref.paged_verify_ref))
+    return ((paged_decode.paged_decode_int8_cuda, ref.paged_decode_quant_ref)
+            if quant else (paged_decode.paged_decode_cuda,
+                           ref.paged_decode_ref))
+
+
+def _gathered(pools, btc, dtype):
+    """The library call's K/V: each row's pages gathered (and dequantized
+    to q's dtype for int8 pages) in SDPA's (B, Hkv, S, D) layout."""
+    from repro_torch.kernels.ref import _gather_dequantized, _gather_pages
+    if len(pools) == 4:
+        kg = _gather_dequantized(pools[0], pools[2], btc, dtype)
+        vg = _gather_dequantized(pools[1], pools[3], btc, dtype)
+    else:
+        kg, vg = (_gather_pages(p, btc) for p in pools)
+    return tuple(x.transpose(1, 2).contiguous() for x in (kg, vg))
+
+
+def _kv_bytes(positions, quant, elem):
+    """Bytes of ``positions`` (position, kv head) K or V vectors: D values
+    of the pool's type, plus one bf16 scale each for int8 pages."""
+    return positions * HKV * (D * 1 + 2 if quant else D * elem)
+
+
+def paged_case(name, bt, lengths, dt, *, iters=100, quant=False):
+    """The paged decode kernel (``quant``: its int8 form) on block table
+    ``bt`` (numpy int32 (B, maxp)) and ``lengths``, over a random pool
+    holding every page the table names."""
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_decode import paged_decode_cuda
-    from repro_torch.kernels.ref import _gather_pages, paged_decode_ref
     import torch
+    kernel, plain = _paged_fns(False, quant)
     b, maxp = bt.shape
-    q, kp, vp, btc, ln = _pool(bt, lengths, 1, dt, sum(lengths) + b)
-    got = paged_decode_cuda(q, kp, vp, btc, ln)
+    q, pools, btc, ln = _pool(bt, lengths, 1, dt, sum(lengths) + b, quant)
+    got = kernel(q, *pools, btc, ln)
     torch.cuda.synchronize()
-    err = check(f"paged {name}", got, paged_decode_ref(q, kp, vp, btc, ln),
-                dt)
-    kg, vg = (_gather_pages(p, btc).transpose(1, 2).contiguous()
-              for p in (kp, vp))
+    err = check(f"paged{' int8' * quant} {name}", got,
+                plain(q, *pools, btc, ln), dt)
+    kg, vg = _gathered(pools, btc, q.dtype)
     mask = (torch.arange(maxp * PAGE, device="cuda")[None, :]
             < ln[:, None])[:, None, None, :]
     qt = q.transpose(1, 2).contiguous()
-    t = timings(lambda: paged_decode_cuda(q, kp, vp, btc, ln),
-                lambda: paged_decode_ref(q, kp, vp, btc, ln),
+    t = timings(lambda: kernel(q, *pools, btc, ln),
+                lambda: plain(q, *pools, btc, ln),
                 lambda: F.scaled_dot_product_attention(
                     qt, kg, vg, attn_mask=mask, enable_gqa=True), iters)
     # what the function needs: a live row's K and V up to its length and
@@ -340,37 +408,37 @@ def paged_case(name, bt, lengths, dt, *, iters=100):
     entries = sum(-(-(min(n, cap) if n > 0 else cap) // PAGE)
                   for n in lengths)
     elem = q.element_size()
-    nbytes = ((2 * q.numel() + (k_pos + v_pos) * HKV * D) * elem
+    nbytes = (2 * q.numel() * elem + _kv_bytes(k_pos + v_pos, quant, elem)
               + 4 * (entries + b))
     flops = 2.0 * H * D * (k_pos + v_pos)
     return dict(case=name, dtype=dt, shape=f"B={b} maxp={maxp} "
                 f"lengths={_shown(lengths)} H={H} Hkv={HKV} D={D} "
-                f"page={PAGE}", max_abs_err=err, tol=TOL[dt], **t,
+                f"page={PAGE}" + (" int8 pages" if quant else ""),
+                max_abs_err=err, tol=TOL[dt], **t,
                 **bound(nbytes, flops, dt))
 
 
-def verify_case(name, bt, lengths, kq, dt, *, iters=100):
-    """The paged verify kernel: ``kq`` query tokens per row over block
-    table ``bt`` with ``lengths`` valid positions before them."""
+def verify_case(name, bt, lengths, kq, dt, *, iters=100, quant=False):
+    """The paged verify kernel (``quant``: its int8 form): ``kq`` query
+    tokens per row over block table ``bt`` with ``lengths`` valid
+    positions before them."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_verify import paged_verify_cuda
-    from repro_torch.kernels.ref import _gather_pages, paged_verify_ref
+    kernel, plain = _paged_fns(True, quant)
     b, maxp = bt.shape
-    q, kp, vp, btc, ln = _pool(bt, lengths, kq, dt, sum(lengths) + kq)
-    got = paged_verify_cuda(q, kp, vp, btc, ln)
+    q, pools, btc, ln = _pool(bt, lengths, kq, dt, sum(lengths) + kq, quant)
+    got = kernel(q, *pools, btc, ln)
     torch.cuda.synchronize()
-    err = check(f"verify {name}", got, paged_verify_ref(q, kp, vp, btc, ln),
-                dt)
-    kg, vg = (_gather_pages(p, btc).transpose(1, 2).contiguous()
-              for p in (kp, vp))
+    err = check(f"verify{' int8' * quant} {name}", got,
+                plain(q, *pools, btc, ln), dt)
+    kg, vg = _gathered(pools, btc, q.dtype)
     cap = maxp * PAGE
     limit = ln[:, None] + torch.arange(kq, device="cuda")[None, :]
     mask = (torch.arange(cap, device="cuda")[None, None, :]
             <= limit[..., None])[:, None]                   # (B, 1, K, S)
     qt = q.transpose(1, 2).contiguous()
-    t = timings(lambda: paged_verify_cuda(q, kp, vp, btc, ln),
-                lambda: paged_verify_ref(q, kp, vp, btc, ln),
+    t = timings(lambda: kernel(q, *pools, btc, ln),
+                lambda: plain(q, *pools, btc, ln),
                 lambda: F.scaled_dot_product_attention(
                     qt, kg, vg, attn_mask=mask, enable_gqa=True), iters)
     # what the function needs: each row's K and V through its last query's
@@ -379,28 +447,30 @@ def verify_case(name, bt, lengths, kq, dt, *, iters=100):
     read = [min(n + kq, cap) for n in lengths]
     seen = sum(min(n + j + 1, cap) for n in lengths for j in range(kq))
     elem = q.element_size()
-    nbytes = ((2 * q.numel() + 2 * sum(read) * HKV * D) * elem
+    nbytes = (2 * q.numel() * elem + _kv_bytes(2 * sum(read), quant, elem)
               + 4 * (sum(-(-r // PAGE) for r in read) + b))
     flops = 4.0 * H * D * seen
     return dict(case=name, dtype=dt, shape=f"B={b} K={kq} maxp={maxp} "
                 f"lengths={_shown(lengths)} H={H} Hkv={HKV} D={D} "
-                f"page={PAGE}", max_abs_err=err, tol=TOL[dt], **t,
+                f"page={PAGE}" + (" int8 pages" if quant else ""),
+                max_abs_err=err, tol=TOL[dt], **t,
                 **bound(nbytes, flops, dt))
 
 
-def verify_one_token_is_decode(dt) -> float:
+def verify_one_token_is_decode(dt, quant=False) -> float:
     """K = 1 verify at ``lengths`` against the paged decode kernel at
-    ``lengths + 1``: the same function, two kernels."""
+    ``lengths + 1`` (fp or int8 pages): the same function, two kernels."""
     import torch
-    from repro_torch.kernels.paged_decode import paged_decode_cuda
-    from repro_torch.kernels.paged_verify import paged_verify_cuda
+    verify, _ = _paged_fns(True, quant)
+    decode, _ = _paged_fns(False, quant)
     lengths = [28, 1, 40, 0]
-    q, kp, vp, btc, ln = _pool(fresh_tables([n + 1 for n in lengths]),
-                               lengths, 1, dt, 11)
-    got = paged_verify_cuda(q, kp, vp, btc, ln)
-    want = paged_decode_cuda(q, kp, vp, btc, ln + 1)
+    q, pools, btc, ln = _pool(fresh_tables([n + 1 for n in lengths]),
+                              lengths, 1, dt, 11, quant)
+    got = verify(q, *pools, btc, ln)
+    want = decode(q, *pools, btc, ln + 1)
     torch.cuda.synchronize()
-    return check("verify K=1 vs paged decode", got, want, dt)
+    return check(f"verify{' int8' * quant} K=1 vs paged decode", got, want,
+                 dt)
 
 
 def show(name, r) -> None:
@@ -450,15 +520,35 @@ def phase_kernels():
         ]
         # a rider whose lengths + K passes its 2-page table
         past = [30, 31, 9, 0]
-        cases["paged_verify"] += [
-            verify_case("rider", fresh_tables(past, width=2), past,
-                        SPEC_K + 1, dt, iters=200),
-            verify_case("long", fresh_tables([4096 + SPEC_K + 1] * 32),
-                        [4096] * 32, SPEC_K + 1, dt, iters=20),
+        # K = 32 tokens x rep 4 = 128 query rows: tiles of 64 rows, as a
+        # warm prefill of a 17-32 token suffix over 3 cached pages runs it;
+        # K = 33 leaves a ragged third tile
+        warm = [48, 48, 0, 16]
+        for entry, quant in (("paged_verify", False),
+                             ("paged_verify_int8", True)):
+            cases[entry] += [
+                verify_case("rider", fresh_tables(past, width=2), past,
+                            SPEC_K + 1, dt, iters=200, quant=quant),
+                verify_case("long", fresh_tables([4096 + SPEC_K + 1] * 32),
+                            [4096] * 32, SPEC_K + 1, dt, iters=20,
+                            quant=quant),
+                verify_case("k32", fresh_tables([n + 32 for n in warm]),
+                            warm, 32, dt, iters=100, quant=quant),
+                verify_case("k33", fresh_tables([n + 33 for n in warm],
+                                                width=5),
+                            warm, 33, dt, iters=100, quant=quant),
+            ]
+        cases["paged_decode_int8"] += [
+            paged_case("rider", fresh_tables(rider), rider, dt, iters=200,
+                       quant=True),
+            paged_case("long", fresh_tables([4096] * 32), [4096] * 32, dt,
+                       iters=20, quant=True),
         ]
-        err = verify_one_token_is_decode(dt)
-        log(f"  paged_verify K=1 {dt}: max_err {err:.2e} against paged "
-            f"decode at lengths + 1")
+        for quant in (False, True):
+            err = verify_one_token_is_decode(dt, quant)
+            log(f"  paged_verify{'_int8' * quant} K=1 {dt}: max_err "
+                f"{err:.2e} against paged decode{' int8' * quant} at "
+                f"lengths + 1")
     for name, rows in cases.items():
         for r in rows:
             show(name, r)
@@ -512,10 +602,22 @@ def phase_main_shapes(seen) -> dict:
         _, s, ln = _median(steps, f"D={heads[2]} decode (phase {phase})")
         out[entry] = decode_case("main", s, [int(x) for x in ln],
                                  "bfloat16", heads=heads, iters=200)
-    kq, bt, ln = _median(seen["4c"]["paged_verify"], "verify (phase 4c)")
-    out["paged_verify"] = verify_case("main", _dense_pages(bt),
-                                      [int(x) for x in ln], kq, "bfloat16",
-                                      iters=200)
+    bt, ln = _median(seen["4d"]["paged_decode_int8"],
+                     "int8 paged decode (phase 4d)")
+    out["paged_decode_int8"] = paged_case("main", _dense_pages(bt),
+                                          [int(x) for x in ln], "bfloat16",
+                                          iters=200, quant=True)
+    for entry, phase, quant in (("paged_verify", "4c", False),
+                                ("paged_verify_int8", "4e", True)):
+        kq, bt, ln = _median(seen[phase][entry], f"{entry} (phase {phase})")
+        out[entry] = verify_case("main", _dense_pages(bt),
+                                 [int(x) for x in ln], kq, "bfloat16",
+                                 iters=200, quant=quant)
+        # the prefix cache's warm prefill (phase 4f): its widest verify
+        kq, bt, ln = max(seen["4f"][entry], key=lambda st: st[0])
+        out[entry + "_warm"] = verify_case(
+            "warm", _dense_pages(bt), [int(x) for x in ln], kq, "bfloat16",
+            iters=100, quant=quant)
     for entry, r in out.items():
         show(entry, r)
     log("main_cases " + json.dumps(out))
@@ -524,12 +626,14 @@ def phase_main_shapes(seen) -> dict:
 
 # ------------------------------------------------------------ phase 3
 def phase_consistency(n_layers: int):
+    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import dense
     from repro_torch.serving import Engine, GenRequest
     from repro_torch.serving.sampling import masked_logits
     cfg = get_config("qwen3-8b").replace(dtype="float32", n_layers=n_layers)
+    qcfg = cfg.replace(kv_quant=True)
     t0 = time.perf_counter()
     params = dense.init(cfg, torch.Generator("cuda").manual_seed(7), "cuda")
     torch.cuda.synchronize()
@@ -537,12 +641,16 @@ def phase_consistency(n_layers: int):
     log(f"  {cfg.name} x{cfg.n_layers} layers fp32: {gb:.1f} GB of weights "
         f"in {time.perf_counter() - t0:.1f}s")
     rng = torch.Generator().manual_seed(0)
-    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).numpy()
-               .astype("int32") for n in (24, 11)]
+
+    def tokens(n):
+        return torch.randint(2, cfg.vocab_size, (n,), generator=rng).numpy() \
+            .astype("int32")
+
+    prompts = [tokens(n) for n in (24, 11)]
     fresh_cache = {}
 
-    def fresh(tokens):
-        key = tuple(tokens)
+    def fresh(toks):
+        key = tuple(toks)
         if key not in fresh_cache:
             logits = dense.prefill(params, cfg, torch.tensor(
                 [list(key)], device="cuda"))[0][0, 0].float().cpu()
@@ -551,49 +659,101 @@ def phase_consistency(n_layers: int):
 
     worst = {}
 
-    def held(kind, got, tokens, what):
-        want = fresh(tokens)
+    def held(kind, got, want, what):
         diff = float((got - want).abs().max())
         scale = float(want.abs().max())
         worst[kind] = max(worst.get(kind, 0.0), diff / scale)
         if diff > 1e-3 * scale:
-            raise AssertionError(f"{what}: |{kind} - prefill| {diff:.3e} > "
+            raise AssertionError(f"{what}: |{kind}| {diff:.3e} > "
                                  f"1e-3 * {scale:.3e}")
 
-    def serve(**kw):
-        eng = Engine(cfg, params, max_batch=4, bucket=32, **kw)
-        reqs = [GenRequest(rid=f"c{i}", max_new=8, tokens=p)
-                for i, p in enumerate(prompts)]
+    def serve(c, waves, warm=None, **kw):
+        """Serve ``waves`` (lists of prompts, one wave after the other) on
+        one engine; returns the requests, the decode or verify steps' live
+        rows, tokens and logits, and the engine.  With ``warm`` (a list),
+        each warm prefill's rows are appended to it with their logits."""
+        eng = Engine(c, params, max_batch=4, bucket=32, **kw)
+        if warm is not None:
+            orig_warm = eng._prefill_warm
+
+            def warm_recording(rows, hits):
+                orig_warm(rows, hits)
+                # a copy: the carried logits are overwritten in place
+                warm.extend(([int(t) for t in r.tokens],
+                             eng._logits[i, 0].float().cpu().clone())
+                            for i, r in rows)
+
+            eng._prefill_warm = warm_recording
         steps = []
         attr = ("_verify" if "spec_draft" in kw else
                 "_decode_paged" if kw.get("paged") else "_decode")
         fwd = getattr(eng, attr)
 
-        def recording(p, c, cache, tok):
+        def recording(p, c_, cache, tok):
             # rows with a sampled token are the step's live rows; their
             # fed history is the prompt plus what they emitted before it
             live = {i: [int(t) for t in s.req.tokens] + s.out[:-1]
                     for i, s in enumerate(eng._slots)
                     if s is not None and s.out}
-            logits, cache = fwd(p, c, cache, tok)
-            steps.append((live, tok.cpu().tolist(), logits.float().cpu()))
+            logits, cache = fwd(p, c_, cache, tok)
+            if live:
+                steps.append((live, tok.cpu().tolist(),
+                              logits.float().cpu()))
             return logits, cache
 
         setattr(eng, attr, recording)
-        eng.serve(reqs)
-        return reqs, steps
+        reqs = []
+        for w, wave in enumerate(waves):
+            batch = [GenRequest(rid=f"c{w}.{i}", max_new=8, tokens=p)
+                     for i, p in enumerate(wave)]
+            eng.serve(batch)
+            reqs += batch
+        return reqs, steps, eng
 
-    results = {}
-    for mode, kw in (("paged", dict(paged=True)), ("slot", {}),
-                     ("spec", dict(paged=True, spec_draft=(cfg, params),
-                                   spec_k=SPEC_K))):
-        reqs, steps = serve(**kw)
-        results[mode] = [r.result.tolist() for r in reqs]
+    def by_history(steps):
+        """Each recorded logit row keyed by the tokens fed up to it."""
+        out = {}
         for live, toks, logits in steps:
             for i, hist in live.items():
                 for j in range(len(toks[i])):
-                    held(mode, logits[i, j], hist + toks[i][: j + 1],
-                         f"{mode} row {i} position {j}")
+                    out[tuple(hist + toks[i][: j + 1])] = logits[i, j]
+        return out
+
+    results = {}
+    records = {}
+    for mode, c, kw in (
+            ("paged", cfg, dict(paged=True)), ("slot", cfg, {}),
+            ("spec", cfg, dict(paged=True, spec_draft=(cfg, params),
+                               spec_k=SPEC_K)),
+            ("int8 paged", qcfg, dict(paged=True)), ("int8 slot", qcfg, {}),
+            ("int8 spec", qcfg, dict(paged=True, spec_draft=(qcfg, params),
+                                     spec_k=SPEC_K))):
+        reqs, steps, _ = serve(c, [prompts], **kw)
+        results[mode] = [r.result.tolist() for r in reqs]
+        records[mode] = by_history(steps)
+        if c.kv_quant:
+            if mode == "int8 paged":
+                log(f"  {mode}: {sum(len(t) for t in results[mode])} "
+                    f"tokens, {len(steps)} decode steps recorded")
+                continue
+            # int8 slot decode and int8 verify attend the same quantized
+            # values as int8 paged decode: held to its logits
+            n = 0
+            for key, got in records[mode].items():
+                want = records["int8 paged"].get(key)
+                if want is not None:
+                    held(mode, got, want, f"{mode} after {len(key)} tokens")
+                    n += 1
+            if n < 8:
+                raise AssertionError(f"{mode}: only {n} logit rows shared "
+                                     f"a history with int8 paged decode")
+            log(f"  {mode}: {n} logit rows held to int8 paged decode's: "
+                f"worst |diff| / max|logit| = {worst[mode]:.2e} (limit "
+                f"1e-3)")
+            continue
+        for key, got in records[mode].items():
+            held(mode, got, fresh(list(key)), f"{mode} after {len(key)} "
+                 f"tokens")
         # each emitted token is the greedy choice of a fresh prefill
         for r in reqs:
             toks = [int(t) for t in r.tokens] + [int(t) for t in r.result]
@@ -604,13 +764,43 @@ def phase_consistency(n_layers: int):
                     raise AssertionError(f"{mode} {r.rid} token {t}: "
                                          f"{r.result[t]} != prefill {want}")
         log(f"  {mode}: {sum(len(t) for t in results[mode])} tokens; "
-            f"{len(steps)} {'verify' if mode == 'spec' else 'decode'} steps "
-            f"held to fresh prefills: worst |diff| / max|logit| = "
+            f"{len(steps)} {'verify' if 'spec' in mode else 'decode'} "
+            f"steps held to fresh prefills: worst |diff| / max|logit| = "
             f"{worst[mode]:.2e} (limit 1e-3)")
     if not results["paged"] == results["slot"] == results["spec"]:
         raise AssertionError(f"greedy streams differ: {results}")
     log("  paged, slot and agreeing-spec greedy tokens identical")
-    del params, fresh_cache
+    if not (results["int8 paged"] == results["int8 slot"]
+            == results["int8 spec"]):
+        raise AssertionError(f"int8 greedy streams differ: {results}")
+    log("  int8 paged, int8 slot and int8 agreeing-spec greedy tokens "
+        "identical")
+
+    # the prefix cache: two waves sharing a page-aligned 48-token prefix;
+    # the second wave's warm prefill verifies its 23- and 30-token suffixes
+    # (K = 32) over the 3 cached pages, and its logits and the decode
+    # steps after it are held to fresh cold prefills of the same tokens
+    prefix = tokens(48)
+    waves = [[prefix], [prefix, prefix]]
+    waves = [[np.concatenate([p, tokens(n)]) for p, n in zip(w, sizes)]
+             for w, sizes in zip(waves, ((20,), (23, 30)))]
+    warm = []
+    _, steps, eng = serve(cfg, waves, warm=warm, paged=True,
+                          prefix_cache=True)
+    if eng.prefix_hit_tokens <= 0 or not warm:
+        raise AssertionError(f"prefix engine never hit: "
+                             f"{eng.prefix_hit_tokens} tokens")
+    for toks, got in warm:
+        held("prefix warm", got, fresh(toks),
+             f"warm prefill of {len(toks)} tokens")
+    for key, got in by_history(steps).items():
+        held("prefix decode", got, fresh(list(key)),
+             f"prefix decode after {len(key)} tokens")
+    log(f"  prefix cache: {eng.prefix_hit_tokens} prompt tokens hit; warm "
+        f"prefills of {[len(t) for t, _ in warm]} tokens held to fresh "
+        f"prefills: worst |diff| / max|logit| = {worst['prefix warm']:.2e};"
+        f" decode steps {worst['prefix decode']:.2e} (limit 1e-3)")
+    del params, fresh_cache, eng
     torch.cuda.empty_cache()
     return {"worst_rel_diff": worst}
 
@@ -630,8 +820,7 @@ def recording_ops(ops, seen, widths):
     once per decode or verify step (one lengths tensor serves all layers) a
     host copy of its shapes, table and lengths; and every call's head width
     in ``widths``.  Returns a function that puts the originals back."""
-    names = ("attention", "paged_decode", "decode", "paged_verify")
-    orig = {n: getattr(ops, n) for n in names}
+    orig = {n: getattr(ops, n) for n in KERNEL_OPS.values()}
     last = [None]
 
     def step(key, lengths, *record):
@@ -644,28 +833,52 @@ def recording_ops(ops, seen, widths):
         seen["flash_attention"].append((tuple(q.shape), causal, window))
         return orig["attention"](q, k, v, causal=causal, window=window)
 
-    def paged(q, k_pool, v_pool, block_tables, lengths):
-        widths["paged_decode", q.shape[3]] += 1
-        step("paged_decode", lengths, block_tables.cpu().numpy())
-        return orig["paged_decode"](q, k_pool, v_pool, block_tables, lengths)
-
     def decode(q, k_cache, v_cache, lengths, *, window=None):
         widths["flash_decode", q.shape[3]] += 1
         step("flash_decode", lengths, q.shape[3], k_cache.shape[1])
         return orig["decode"](q, k_cache, v_cache, lengths, window=window)
 
-    def verify(q, k_pool, v_pool, block_tables, lengths):
-        widths["paged_verify", q.shape[3]] += 1
-        step("paged_verify", lengths, q.shape[1], block_tables.cpu().numpy())
-        return orig["paged_verify"](q, k_pool, v_pool, block_tables, lengths)
+    def paged(kernel):
+        # paged decode and verify, fp or int8: (q, *pools, tables, lengths)
+        def call(q, *args):
+            block_tables, lengths = args[-2:]
+            widths[kernel, q.shape[3]] += 1
+            record = (() if kernel.startswith("paged_decode")
+                      else (q.shape[1],))
+            step(kernel, lengths, *record, block_tables.cpu().numpy())
+            return orig[KERNEL_OPS[kernel]](q, *args)
+        return call
 
-    ops.attention, ops.paged_decode, ops.decode, ops.paged_verify = (
-        att, paged, decode, verify)
+    wrapped = {"attention": att, "decode": decode}
+    for kernel in ("paged_decode", "paged_verify", "paged_decode_int8",
+                   "paged_verify_int8"):
+        wrapped[KERNEL_OPS[kernel]] = paged(kernel)
+    for name, fn in wrapped.items():
+        setattr(ops, name, fn)
 
     def restore():
-        for n in names:
-            setattr(ops, n, orig[n])
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
     return restore
+
+
+def _seen():
+    return {k: [] for k in KERNEL_OPS}
+
+
+def check_launches(label, launches, widths, phase):
+    """Each kernel's launch count equals the calls its entry point saw, and
+    every (kernel, width) of the phase's path launched."""
+    log(f"  launches on the {label} path: {launches}; by (kernel, head "
+        f"width): {dict(widths)}")
+    for kernel, n in launches.items():
+        if n != sum(c for (k, _), c in widths.items() if k == kernel):
+            raise AssertionError(f"{kernel}: {n} launches but "
+                                 f"{dict(widths)} calls")
+    missing = sorted(f"{k}@{d}" for k, d in PATHS[phase] if widths[k, d] < 1)
+    if missing:
+        raise AssertionError(f"kernels of the {label} path never launched: "
+                             f"{missing}")
 
 
 def phase_serve(phase, params, first=None):
@@ -676,13 +889,12 @@ def phase_serve(phase, params, first=None):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    mode = PHASE_MODE[phase]
-    cfg = get_config("qwen3-8b").replace(dtype="bfloat16")
+    mode, quant = PHASE_MODE[phase]
+    cfg = get_config("qwen3-8b").replace(dtype="bfloat16", kv_quant=quant)
     dev = torch.device("cuda")
     kw = dict(nodes=2, requests=8, max_new=8, seed=0, device=dev, mode=mode,
               spec_k=SPEC_K, params_fn=lambda i, c, d: params[i])
-    seen = {k: [] for k in ("flash_attention", "paged_decode",
-                            "flash_decode", "paged_verify")}
+    seen = _seen()
     widths = collections.Counter()
     restore = recording_ops(ops, seen, widths)
     try:
@@ -691,16 +903,8 @@ def phase_serve(phase, params, first=None):
         launches = ops.launch_counts()
     finally:
         restore()
-    log(f"  launches on the {mode} path: {launches}; by (kernel, head "
-        f"width): {dict(widths)}")
-    for kernel, n in launches.items():
-        if n != sum(c for (k, _), c in widths.items() if k == kernel):
-            raise AssertionError(f"{kernel}: {n} launches but "
-                                 f"{dict(widths)} calls")
-    missing = sorted(f"{k}@{d}" for k, d in PATHS[phase] if widths[k, d] < 1)
-    if missing:
-        raise AssertionError(f"kernels of the {mode} path never launched: "
-                             f"{missing}")
+    label = ("int8 " if quant else "") + mode
+    check_launches(label, launches, widths, phase)
     mine = {e: widths[k, d] for e, (k, d, p) in ENTRIES.items()
             if p == phase}
     if set(out["results"]) != {f"r{i}" for i in range(8)}:
@@ -751,11 +955,12 @@ def phase_serve(phase, params, first=None):
         total = sum(len(t) for t in first["results"].values())
         extra["share_equal_to_paged"] = same / total
         log(f"  tokens equal to phase 4's, position by position: {same} of "
-            f"{total} (bf16: verify and decode GEMMs may round differently; "
+            f"{total} (bf16: verify and decode GEMMs may round differently"
+            f"{', and int8 pages hold other values' if quant else ''}; "
             f"exact equality is held in fp32 in phase 3)")
-    profile = profile_serve(serve, cfg, kw, out)
+    profile = profile_rerun(lambda: serve.run(cfg, verbose=False, **kw), out)
     log(f"serve_profile_{phase} " + json.dumps(dict(
-        mode=mode, steps=steps, weights_gb=wbytes / 1e9,
+        mode=label, steps=steps, weights_gb=wbytes / 1e9,
         step_floor_ms=floor_ms, tok_per_s=out["tok_per_s"],
         wall_s=out["wall_s"], launches=launches,
         launches_by_width={f"{k}@{d}": n for (k, d), n in widths.items()},
@@ -763,13 +968,14 @@ def phase_serve(phase, params, first=None):
     return out, mine, seen
 
 
-def profile_serve(serve, cfg, kw, first) -> dict:
-    """Run the same scenario again under ``torch.profiler`` and return the
-    device's busy time over the replay and the kernels that take it."""
+def profile_rerun(rerun, first) -> dict:
+    """Run the same scenario again (``rerun()`` returns its ``results`` and
+    ``wall_s``) under ``torch.profiler`` and return the device's busy time
+    over the replay and the kernels that take it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again = serve.run(cfg, verbose=False, **kw)
+        again = rerun()
     same = all((again["results"][r] == t).all() if len(t) == len(
         again["results"][r]) else False for r, t in first["results"].items())
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -791,6 +997,103 @@ def profile_serve(serve, cfg, kw, first) -> dict:
                 busy_share=busy_ms / wall_ms, kernel_launches=len(kern),
                 top_kernels_ms={n[:90]: us / 1e3 for n, us in top},
                 same_tokens=same)
+
+
+def phase_prefix(params):
+    """[4f] The prefix cache on ``Engine(paged=True, prefix_cache=True)``,
+    fp and int8 pages (full-width qwen3-8b, bf16, node 1's weights): a
+    first wave of two requests sharing a page-aligned 48-token prefix
+    registers its pages, and a second wave of four with 17-31 token
+    suffixes must hit them, its warm prefill verifying K = 32 tokens per
+    row over the 3 cached pages.  Launches are checked as in the serve
+    phases; token equality with a cache-less engine is printed, not held
+    (bf16: the warm prefill's verify and a cold prefill round
+    differently)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine, GenRequest
+    base = get_config("qwen3-8b").replace(dtype="bfloat16")
+    rng = np.random.default_rng(13)
+    prefix = rng.integers(2, base.vocab_size, size=48)
+    waves = [[np.concatenate([prefix, rng.integers(2, base.vocab_size,
+                                                   size=n)]).astype(np.int32)
+              for n in sizes] for sizes in ((20, 26), (17, 23, 29, 31))]
+
+    def scenario(quant, prefix_cache=True):
+        eng = Engine(base.replace(kv_quant=quant), params[0], max_batch=4,
+                     bucket=32, paged=True, prefix_cache=prefix_cache)
+        results = {}
+        t0 = time.perf_counter()
+        for w, wave in enumerate(waves):
+            reqs = [GenRequest(rid=f"w{w}.{i}", tokens=p, max_new=8)
+                    for i, p in enumerate(wave)]
+            eng.serve(reqs)
+            results.update({r.rid: r.result for r in reqs})
+        torch.cuda.synchronize()
+        return dict(results=results, wall_s=time.perf_counter() - t0,
+                    engine=eng)
+
+    def both():
+        runs = {q: scenario(q) for q in (False, True)}
+        return dict(results={f"{'int8 ' * q}{rid}": t for q, r in runs.items()
+                             for rid, t in r["results"].items()},
+                    wall_s=sum(r["wall_s"] for r in runs.values()),
+                    runs=runs)
+
+    seen, widths = _seen(), collections.Counter()
+    restore = recording_ops(ops, seen, widths)
+    try:
+        ops.reset_launch_counts()
+        out = both()
+        launches = ops.launch_counts()
+    finally:
+        restore()
+    check_launches("prefix-cache", launches, widths, "4f")
+    for kernel in ("paged_verify", "paged_verify_int8"):
+        ks = sorted({kq for kq, _, _ in seen[kernel]})
+        if not ks or max(ks) <= 16:
+            raise AssertionError(f"{kernel}: warm prefill verified K={ks}, "
+                                 f"not more than 16 tokens")
+        log(f"  {kernel}: warm prefill at K = {ks}")
+    summary = {}
+    for quant, run in out["runs"].items():
+        eng, st = run["engine"], run["engine"].stats
+        label = "int8" if quant else "fp"
+        if eng.prefix_hit_tokens <= 0:
+            raise AssertionError(f"{label} prefix engine never hit")
+        for rid, toks in run["results"].items():
+            if not (1 <= len(toks) <= 8 and (toks >= 0).all()
+                    and (toks < base.vocab_size).all()):
+                raise AssertionError(f"{label} {rid}: bad tokens {toks}")
+        cold = scenario(quant, prefix_cache=False)["results"]
+        same = sum(int(a == b) for rid, t in cold.items()
+                   for a, b in zip(t.tolist(), run["results"][rid].tolist()))
+        total = sum(len(t) for t in cold.values())
+        summary[label] = dict(
+            prefix_hit_tokens=eng.prefix_hit_tokens,
+            prefix_lookup_tokens=eng.prefix_lookup_tokens,
+            prefix_hit_rate=eng.prefix_hit_rate,
+            prefill_batches=st.batches,
+            prefill_ms=st.prefill_wall_s / max(1, st.batches) * 1e3,
+            decode_steps=st.decode_steps,
+            decode_ms=st.decode_wall_s / max(1, st.decode_steps) * 1e3,
+            wall_s=run["wall_s"], tokens_equal_to_cold=same,
+            tokens=total, pages=eng.debug_page_accounting())
+        log(f"  {label}: {eng.prefix_hit_tokens} of "
+            f"{eng.prefix_lookup_tokens} prompt tokens hit the cache; "
+            f"{st.batches} prefill batches at "
+            f"{summary[label]['prefill_ms']:.2f} ms, {st.decode_steps} decode"
+            f" steps at {summary[label]['decode_ms']:.2f} ms; tokens equal to"
+            f" a cache-less engine's: {same} of {total}; pages "
+            f"{summary[label]['pages']}")
+    profile = profile_rerun(both, out)
+    log("serve_profile_4f " + json.dumps(dict(
+        mode="prefix cache", engines=summary, launches=launches,
+        launches_by_width={f"{k}@{d}": n for (k, d), n in widths.items()},
+        **profile)))
+    return launches, seen
 
 
 def main() -> int:
@@ -824,6 +1127,14 @@ def main() -> int:
     log("[4c] serve on speculative paged engines, draft cfg.draft()")
     _, launches["4c"], seen["4c"] = phase_serve("4c", params,
                                                 first=paged_out)
+    log("[4d] serve on int8 paged engines (--kv-quant)")
+    _, launches["4d"], seen["4d"] = phase_serve("4d", params,
+                                                first=paged_out)
+    log("[4e] serve on int8 speculative engines (--spec --kv-quant)")
+    _, launches["4e"], seen["4e"] = phase_serve("4e", params,
+                                                first=paged_out)
+    log("[4f] the prefix cache, fp and int8 pages")
+    launches_4f, seen["4f"] = phase_prefix(params)
     del params
     torch.cuda.empty_cache()
     log("[5] kernels vs their plain versions at the serve phases' shapes")
@@ -834,7 +1145,9 @@ def main() -> int:
         kernels.append(dict(
             name=entry, route="cuda", source=meta["source"],
             replaces=meta["replaces"], head_dim=d, phase=phase,
-            launches=launches[phase][entry], max_abs_err=r["max_abs_err"],
+            launches=launches[phase][entry],
+            launches_4f=launches_4f[kernel] if d == 128 else 0,
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             call_ms=r["call_ms"], timed_by=r["timed_by"], shape=r["shape"],

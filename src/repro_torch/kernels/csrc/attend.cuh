@@ -1,20 +1,30 @@
 // Shared body of the port's decode-shaped attention kernels (contiguous
-// decode, paged decode, paged multi-token verify): one block per (kv head,
-// batch row) attends that row's few query rows to its KV, which it walks in
-// 64-position chunks with an online softmax in fp32.
+// decode, paged decode, paged multi-token verify, and the int8-page forms
+// of the paged two): one block per (kv head, batch row, tile of at most
+// kMaxRows query rows) attends those query rows to the row's KV, which it
+// walks in 64-position chunks with an online softmax in fp32.
 //
 // What bounds these kernels on the H100: each K/V element is read once and
 // used for 2 * rows operations (rows = K * rep query rows share it: 1 * 4
 // for qwen3-8b decode, 5 * 4 for its verify), a few operations per byte
 // against the ~295 the card needs in bf16, so the bytes of the KV they read
-// bound them (3.35 TB/s).  The design reads each element once: the rows of
-// a kv head's group share every staged chunk, so K/V are never re-read per
-// query head or per verify token, and a row walks only the positions some
-// query of the block can see, not the whole cache or table.
+// bound them (3.35 TB/s).  The design reads each element once per tile:
+// the rows of a kv head's group share every staged chunk, so K/V are never
+// re-read per query head or per verify token (a verify of more than
+// kMaxRows rows reads them once per tile), and a tile walks only the
+// positions one of its queries can see, not the whole cache or table.
+//
+// Where K/V come from (the Src policy): FpKv reads K/V of the q type with
+// 16-byte loads; Int8Kv reads int8 K/V, 16 values per 16-byte load, and
+// multiplies each by the bf16 scale of its (position, kv head), reached
+// through the same slot index, into the fp32 shared tiles -- as the TPU
+// body dequantizes to fp32 -- so masking, the dead-block rule and the
+// table trap are the same code for fp and int8 pages.
 //
 // Layout and masking:
-// * q and out are (B, K, H, D).  Row r of a block is (token j = r / rep,
-//   head g * rep + r % rep), rep = H / Hkv.
+// * q and out are (B, K, H, D).  Query row r of a row's K * rep is (token
+//   j = r / rep, head g * rep + r % rep), rep = H / Hkv; tile z takes rows
+//   [z * kMaxRows, min((z + 1) * kMaxRows, K * rep)).
 // * Row b's query j sees positions [lo, hi_j): lo = max(0, len - window)
 //   with a window, else 0; hi_j = min(len + j + extra, n), len = lengths[b],
 //   n = the positions the row's KV has (S, or maxp * page).  extra is 0 for
@@ -62,19 +72,59 @@ struct PagedKv {
   }
 };
 
+// K/V of the q type T, read 16 bytes at a time.  `off` indexes elements
+// of the (..., Hkv, D) pool or cache; `entry` (the (position, kv head)
+// index) is unused.
+template <typename T>
+struct FpKv {
+  const T* __restrict__ k;
+  const T* __restrict__ v;
+  static constexpr int kVec = Elem<T>::kVec;
+  __device__ __forceinline__ void load_k(size_t, size_t off, float* dst) const {
+    Elem<T>::load_vec(k + off, dst);
+  }
+  __device__ __forceinline__ void load_v(size_t, size_t off, float* dst) const {
+    Elem<T>::load_vec(v + off, dst);
+  }
+};
+
+// int8 K/V pools with bf16 scale pools (..., Hkv, 1): element `off` of the
+// pool times the scale at `entry`, in fp32 (kv_dequantize's arithmetic).
+// A never-written entry has zero values and a zero scale and reads as 0.
+struct Int8Kv {
+  const int8_t* __restrict__ k;
+  const int8_t* __restrict__ v;
+  const __nv_bfloat16* __restrict__ k_scale;
+  const __nv_bfloat16* __restrict__ v_scale;
+  static constexpr int kVec = 16;   // int8 values per 16-byte load
+  __device__ static __forceinline__ void load16(const int8_t* src, float s, float* dst) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[i] = static_cast<float>(b[i]) * s;
+  }
+  __device__ __forceinline__ void load_k(size_t entry, size_t off, float* dst) const {
+    load16(k + off, __bfloat162float(k_scale[entry]), dst);
+  }
+  __device__ __forceinline__ void load_v(size_t entry, size_t off, float* dst) const {
+    load16(v + off, __bfloat162float(v_scale[entry]), dst);
+  }
+};
+
 template <int D>
 size_t attend_smem_bytes(int rows) {
   return sizeof(float) * ((size_t)rows * D + kChunk * (D + 1) + kChunk * D + rows * kChunk + 3 * rows);
 }
 
-template <typename T, int D, int kMaxRows, class Kv>
+template <typename T, int D, int kMaxRows, class Kv, class Src>
 __global__ void __launch_bounds__(kThreads)
-attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ lengths, T* __restrict__ out, int H, int Hkv, int K,
-              int extra, int window, float scale, Kv kv) {
+attend_kernel(const T* __restrict__ q, Src src, const int* __restrict__ lengths,
+              T* __restrict__ out, int H, int Hkv, int K, int extra, int window, float scale,
+              Kv kv) {
   extern __shared__ float smem[];
   const int rep = H / Hkv;
-  const int rows = K * rep;
+  const int row0 = blockIdx.z * kMaxRows;  // this tile's first query row
+  const int rows = min(K * rep - row0, kMaxRows);
   float* sQ = smem;                        // rows x D
   float* sK = sQ + rows * D;               // kChunk x (D+1)
   float* sV = sK + kChunk * (D + 1);       // kChunk x D
@@ -82,8 +132,10 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   float* sM = sS + rows * kChunk;          // rows: running max
   float* sL = sM + rows;                   // rows: running sum
   float* sA = sL + rows;                   // rows: this step's rescale
-  constexpr int kVec = Elem<T>::kVec;
-  constexpr int kVecPerRow = D / kVec;
+  constexpr int kQVec = Elem<T>::kVec;     // q elements per 16-byte load
+  constexpr int kQVecPerRow = D / kQVec;
+  constexpr int kKvVec = Src::kVec;        // K/V elements per 16-byte load
+  constexpr int kKvVecPerRow = D / kKvVec;
   constexpr int kRowStride = kThreads / D; // rows apart per thread
   constexpr int kAcc = (kMaxRows + kRowStride - 1) / kRowStride;
 
@@ -95,15 +147,17 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int n = kv.positions();
   const int len = lengths[b];
   const int lo = window > 0 ? max(0, len - window) : 0;
-  const int hi_last = min(len + K - 1 + extra, n);   // the last query's end
+  // the tile's last query's end (its last row's token)
+  const int hi_last = min(len + (row0 + rows - 1) / rep + extra, n);
   const bool dead = hi_last <= lo;         // no query sees a key
   const int w_lo = dead ? 0 : lo;
   const int w_hi = dead ? n : hi_last;
 
-  for (int i = tid; i < rows * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * kVec;
-    Elem<T>::load_vec(q + (((size_t)b * K + r / rep) * H + g * rep + r % rep) * D + c,
+  for (int i = tid; i < rows * kQVecPerRow; i += kThreads) {
+    const int r = i / kQVecPerRow;
+    const int rg = row0 + r;
+    const int c = (i % kQVecPerRow) * kQVec;
+    Elem<T>::load_vec(q + (((size_t)b * K + rg / rep) * H + g * rep + rg % rep) * D + c,
                       sQ + r * D + c);
   }
   for (int r = tid; r < rows; r += kThreads) {
@@ -118,24 +172,25 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
   for (int c0 = (w_lo / kChunk) * kChunk; c0 < w_hi; c0 += kChunk) {
     __syncthreads();                       // previous step fully consumed
-    for (int i = tid; i < kChunk * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * kVec;
+    for (int i = tid; i < kChunk * kKvVecPerRow; i += kThreads) {
+      const int r = i / kKvVecPerRow;
+      const int c = (i % kKvVecPerRow) * kKvVec;
       const int pos = c0 + r;
       float* dk = sK + r * (D + 1) + c;
       float* dv = sV + r * D + c;
       if (pos >= w_lo && pos < w_hi) {
-        const size_t off = (kv.slot(b, pos) * Hkv + g) * D + c;
+        const size_t entry = kv.slot(b, pos) * Hkv + g;
+        const size_t off = entry * D + c;
         if (!dead) {                       // a block without a key scores none
-          float tmp[kVec];
-          Elem<T>::load_vec(k + off, tmp);
+          float tmp[kKvVec];
+          src.load_k(entry, off, tmp);
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) dk[j] = tmp[j];
+          for (int j = 0; j < kKvVec; ++j) dk[j] = tmp[j];
         }
-        Elem<T>::load_vec(v + off, dv);
+        src.load_v(entry, off, dv);
       } else {
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) { dk[j] = 0.f; dv[j] = 0.f; }
+        for (int j = 0; j < kKvVec; ++j) { dk[j] = 0.f; dv[j] = 0.f; }
       }
     }
     __syncthreads();
@@ -147,7 +202,7 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       float s;
       if (pos < w_lo || pos >= w_hi) {
         s = neg_inf();
-      } else if (dead || pos >= min(len + r / rep + extra, n)) {
+      } else if (dead || pos >= min(len + (row0 + r) / rep + extra, n)) {
         s = kNegInf;
       } else {
         float dot = 0.f;
@@ -194,26 +249,29 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int j = 0; j < kAcc; ++j) {
     const int r = rsub + j * kRowStride;
     if (r < rows) {
-      out[(((size_t)b * K + r / rep) * H + g * rep + r % rep) * D + dcol] =
+      const int rg = row0 + r;
+      out[(((size_t)b * K + rg / rep) * H + g * rep + rg % rep) * D + dcol] =
           Elem<T>::store(acc[j] / fmaxf(sL[r], 1e-30f));
     }
   }
 }
 
-// Launch attend_kernel on a (Hkv, B) grid.  Returns the CUDA error of the
-// launch (0 on success); the caller checked K * H / Hkv <= kMaxRows.
-template <typename T, int D, int kMaxRows, class Kv>
-int launch_attend(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                  int B, int H, int Hkv, int K, int extra, int window, float scale, Kv kv,
-                  int device, cudaStream_t stream) {
+// Launch attend_kernel on a (Hkv, B, ceil(K * rep / kMaxRows)) grid.
+// Returns the CUDA error of the launch (0 on success).
+template <typename T, int D, int kMaxRows, class Kv, class Src>
+int launch_attend(const void* q, Src src, const int* lengths, void* out, int B, int H, int Hkv,
+                  int K, int extra, int window, float scale, Kv kv, int device,
+                  cudaStream_t stream) {
   static bool smem_allowed[kMaxDevices] = {};
-  const cudaError_t e = allow_smem_once(attend_kernel<T, D, kMaxRows, Kv>,
+  const cudaError_t e = allow_smem_once(attend_kernel<T, D, kMaxRows, Kv, Src>,
                                         attend_smem_bytes<D>(kMaxRows), device, smem_allowed);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = attend_smem_bytes<D>(K * (H / Hkv));
-  attend_kernel<T, D, kMaxRows, Kv><<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      static_cast<T*>(out), H, Hkv, K, extra, window, scale, kv);
+  const int total = K * (H / Hkv);
+  const int tiles = (total + kMaxRows - 1) / kMaxRows;
+  const size_t smem = attend_smem_bytes<D>(total < kMaxRows ? total : kMaxRows);
+  attend_kernel<T, D, kMaxRows, Kv, Src><<<dim3(Hkv, B, tiles), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), src, lengths, static_cast<T*>(out), H, Hkv, K, extra, window,
+      scale, kv);
   return (int)cudaGetLastError();
 }
 

@@ -34,10 +34,11 @@ int launch_width(const void* q, const void* k, const void* v, const int* lengths
                  int B, int S, int H, int Hkv, int D, int window, float scale, int device,
                  cudaStream_t st) {
   const ContiguousKv kv{S};
+  const FpKv<T> src{static_cast<const T*>(k), static_cast<const T*>(v)};
   if (D == 64)
-    return launch_attend<T, 64, kMaxRep>(q, k, v, lengths, out, B, H, Hkv, 1, 0, window, scale,
+    return launch_attend<T, 64, kMaxRep>(q, src, lengths, out, B, H, Hkv, 1, 0, window, scale,
                                          kv, device, st);
-  return launch_attend<T, 128, kMaxRep>(q, k, v, lengths, out, B, H, Hkv, 1, 0, window, scale,
+  return launch_attend<T, 128, kMaxRep>(q, src, lengths, out, B, H, Hkv, 1, 0, window, scale,
                                         kv, device, st);
 }
 

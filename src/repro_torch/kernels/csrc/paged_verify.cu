@@ -2,55 +2,102 @@
 //
 // Replaces the TPU kernel src/repro/kernels/spec_verify.py ·
 // flash_paged_verify_tpu (body _verify_kernel, wrapper _paged_attention in
-// paged_decode.py) with fp pools: speculative decoding verifies K = spec_k
-// + 1 tokens per row (the pending token and the drafts) in one target
-// forward.  Their KV is already in the page pool (P, page, Hkv, D) at
-// positions lengths[b] .. lengths[b] + K - 1, reached through the row's
-// block table (B, maxp); query j attends positions <= lengths[b] + j.
+// paged_decode.py) in both its forms: K query tokens per row -- the pending
+// token and the drafts of a speculative verify, or the uncached suffix of a
+// prompt in the prefix cache's warm prefill -- whose KV is already in the
+// page pool (P, page, Hkv, D) at positions lengths[b] .. lengths[b] + K - 1,
+// reached through the row's block table (B, maxp); query j attends
+// positions <= lengths[b] + j.  paged_verify_fwd takes pools of q's type
+// (no scales); paged_verify_int8_fwd takes int8 pools with bf16 scale pools
+// (P, page, Hkv, 1) riding the same table (k_scale/v_scale), each element
+// dequantized to fp32 as it is staged.
 //
-// What bounds it on this card: each K/V element is read once and used for
-// 2 * K * rep operations (20 query rows for qwen3-8b with spec_k 4), about
-// 20 operations per bf16 byte, still far below the ~295 the H100 needs, so
-// the bytes of the pages it reads bound it (3.35 TB/s).
+// What bounds it on this card: each K/V element is read once per tile and
+// used for 2 * rows operations (20 query rows for qwen3-8b with spec_k 4, up
+// to 64 per tile), at most ~64 operations per bf16 byte, still below the
+// ~295 the H100 needs, so the bytes of the pages it reads bound it
+// (3.35 TB/s); int8 pages halve them.
 //
 // Design (the shared body in attend.cuh): one block per (kv head, batch
-// row), whose K * rep query rows (every verify token of every query head
-// of the group) share each staged 64-position chunk, so the row's pages are
-// read once per verify, not once per token.  Each query row carries its own
-// causal bound lengths[b] + j; the walk stops at min(lengths[b] + K,
-// maxp * page), the positions the plain version has (a rider row's
+// row, tile of <= 64 query rows).  The K * rep query rows (every verify
+// token of every query head of the group) are cut into tiles of 64 -- the
+// TPU kernel holds all of them in one q block, which shared memory cannot
+// for a warm prefill of hundreds of tokens -- and the rows of a tile share
+// each staged 64-position chunk, so the pages are read once per tile, not
+// once per token.  Each query row carries its own causal bound
+// lengths[b] + j; a tile walks up to its last row's bound, capped at
+// maxp * page, the positions the plain version has (a rider row's
 // lengths + K may pass its table).  A table entry outside [0, P) traps
-// instead of reading outside the pool.  Built for head width 128 in fp32
-// and bf16, up to 64 query rows (K * H / Hkv) per block.
+// instead of reading outside the pool.  Built for head width 128 with q in
+// fp32 and bf16, pools of q's type or int8, any K.
 
 #include "attend.cuh"
 
 namespace repro_torch {
 namespace {
-constexpr int kMaxRows = 64;   // verify tokens x query heads per kv head
-}  // namespace
-}  // namespace repro_torch
+constexpr int kMaxRows = 64;   // query rows (tokens x query heads) per tile
 
-// dtype: 0 = float32, 1 = bfloat16.  D must be 128.  q (B, K, H, D),
-// block_tables (B, maxp) and lengths (B,) int32 (valid tokens before the K
-// new ones).  Returns the CUDA error of the launch (0 on success).
-extern "C" int paged_verify_fwd(const void* q, const void* k_pool, const void* v_pool,
-                                const void* block_tables, const void* lengths, void* out,
-                                int dtype, int B, int K, int H, int Hkv, int D, int page,
-                                int maxp, int P, float scale, int device, void* stream) {
-  using namespace repro_torch;
-  if (D != 128 || K < 1 || H % Hkv != 0 || K * (H / Hkv) > kMaxRows || page < 1 || maxp < 1)
-    return (int)cudaErrorInvalidValue;
+bool bad_shape(int B, int K, int H, int Hkv, int D, int page, int maxp) {
+  return D != 128 || B < 1 || K < 1 || Hkv < 1 || H % Hkv != 0 || page < 1 || maxp < 1 ||
+         (long long)K * (H / Hkv) > 65535LL * kMaxRows;   // grid z limit
+}
+
+template <class Src>
+int launch_verify(const void* q, Src src, const void* block_tables, const void* lengths,
+                  void* out, int dtype, int B, int K, int H, int Hkv, int page, int maxp, int P,
+                  float scale, int device, void* stream) {
   const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lengths);
   const PagedKv kv{static_cast<const int*>(block_tables), page, maxp, P};
   if (dtype == 0)
-    return launch_attend<float, 128, kMaxRows>(q, k_pool, v_pool, ln, out, B, H, Hkv, K, 1, 0,
-                                               scale, kv, device, st);
+    return launch_attend<float, 128, kMaxRows>(q, src, ln, out, B, H, Hkv, K, 1, 0, scale, kv,
+                                               device, st);
   if (dtype == 1)
-    return launch_attend<__nv_bfloat16, 128, kMaxRows>(q, k_pool, v_pool, ln, out, B, H, Hkv,
-                                                       K, 1, 0, scale, kv, device, st);
+    return launch_attend<__nv_bfloat16, 128, kMaxRows>(q, src, ln, out, B, H, Hkv, K, 1, 0,
+                                                       scale, kv, device, st);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+// dtype (q's and out's): 0 = float32, 1 = bfloat16, the pools of the same
+// type.  D must be 128.  q (B, K, H, D), block_tables (B, maxp) and
+// lengths (B,) int32 (valid tokens before the K new ones).  Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int paged_verify_fwd(const void* q, const void* k_pool, const void* v_pool,
+                                const void* block_tables, const void* lengths, void* out,
+                                int dtype, int B, int K, int H, int Hkv, int D, int page,
+                                int maxp, int P, float scale, int device, void* stream) {
+  using namespace repro_torch;
+  if (bad_shape(B, K, H, Hkv, D, page, maxp)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_verify(q, FpKv<float>{static_cast<const float*>(k_pool),
+                                        static_cast<const float*>(v_pool)},
+                         block_tables, lengths, out, dtype, B, K, H, Hkv, page, maxp, P, scale,
+                         device, stream);
+  if (dtype == 1)
+    return launch_verify(q, FpKv<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(k_pool),
+                                                static_cast<const __nv_bfloat16*>(v_pool)},
+                         block_tables, lengths, out, dtype, B, K, H, Hkv, page, maxp, P, scale,
+                         device, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As paged_verify_fwd with int8 pools (P, page, Hkv, D) and bf16 scale
+// pools (P, page, Hkv, 1); dtype is q's and out's.
+extern "C" int paged_verify_int8_fwd(const void* q, const void* k_pool, const void* v_pool,
+                                     const void* k_scale, const void* v_scale,
+                                     const void* block_tables, const void* lengths, void* out,
+                                     int dtype, int B, int K, int H, int Hkv, int D, int page,
+                                     int maxp, int P, float scale, int device, void* stream) {
+  using namespace repro_torch;
+  if (bad_shape(B, K, H, Hkv, D, page, maxp)) return (int)cudaErrorInvalidValue;
+  const Int8Kv src{static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool),
+                   static_cast<const __nv_bfloat16*>(k_scale),
+                   static_cast<const __nv_bfloat16*>(v_scale)};
+  return launch_verify(q, src, block_tables, lengths, out, dtype, B, K, H, Hkv, page, maxp, P,
+                       scale, device, stream);
 }

@@ -16,10 +16,13 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.flash_decode import flash_decode_cuda
-from repro_torch.kernels.paged_decode import paged_decode_cuda
-from repro_torch.kernels.paged_verify import paged_verify_cuda
+from repro_torch.kernels.paged_decode import (paged_decode_cuda,
+                                              paged_decode_int8_cuda)
+from repro_torch.kernels.paged_verify import (paged_verify_cuda,
+                                              paged_verify_int8_cuda)
 from repro_torch.kernels.ref import (decode_ref, flash_ref, paged_decode_ref,
-                                     paged_verify_ref)
+                                     paged_decode_quant_ref, paged_verify_ref,
+                                     paged_verify_quant_ref)
 
 # each kernel: its launching wrapper, its CUDA source and the TPU kernel
 # (file:line of the function that reaches the Pallas call) it replaces
@@ -40,6 +43,14 @@ KERNELS = {
         wrapper=paged_verify_cuda,
         source="src/repro_torch/kernels/csrc/paged_verify.cu",
         replaces="src/repro/kernels/spec_verify.py:87"),
+    "paged_decode_int8": dict(
+        wrapper=paged_decode_int8_cuda,
+        source="src/repro_torch/kernels/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/paged_decode.py:192 with k_scale/v_scale"),
+    "paged_verify_int8": dict(
+        wrapper=paged_verify_int8_cuda,
+        source="src/repro_torch/kernels/csrc/paged_verify.cu",
+        replaces="src/repro/kernels/spec_verify.py:87 with k_scale/v_scale"),
 }
 
 
@@ -91,6 +102,34 @@ def paged_verify(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if _on_cuda(q):
         return paged_verify_cuda(q, k_pool, v_pool, block_tables, lengths)
     return paged_verify_ref(q, k_pool, v_pool, block_tables, lengths)
+
+
+def paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, k_scale: torch.Tensor,
+                       v_scale: torch.Tensor, block_tables: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """Int8 block-table paged decode: int8 pools (P, page, Hkv, D) plus
+    bf16 scale pools (P, page, Hkv, 1) riding the same table, dequantized
+    in the kernel.  q, tables and lengths as in ``paged_decode``."""
+    if _on_cuda(q):
+        return paged_decode_int8_cuda(q, k_pool, v_pool, k_scale, v_scale,
+                                      block_tables, lengths)
+    return paged_decode_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                  block_tables, lengths)
+
+
+def paged_verify_quant(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, k_scale: torch.Tensor,
+                       v_scale: torch.Tensor, block_tables: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """Int8 block-table multi-token verify: pools and scales as in
+    ``paged_decode_quant``, q, tables and lengths as in
+    ``paged_verify``."""
+    if _on_cuda(q):
+        return paged_verify_int8_cuda(q, k_pool, v_pool, k_scale, v_scale,
+                                      block_tables, lengths)
+    return paged_verify_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                  block_tables, lengths)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -2,7 +2,8 @@
 CUDA kernels are compared with on the card.
 
 Port of ``repro.kernels.ref`` (``flash_ref``, ``decode_ref``,
-``paged_decode_ref``, ``verify_ref``, ``paged_verify_ref``).  They repeat
+``paged_decode_ref``, ``paged_decode_quant_ref``, ``verify_ref``,
+``paged_verify_ref``, ``paged_verify_quant_ref``).  They repeat
 the kernels' arithmetic in float32 with whole-tensor operations; they are
 no yardstick of speed.
 """
@@ -13,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.attention import (decode_attention,
+from repro_torch.models.attention import (decode_attention, kv_dequantize,
                                           reference_attention,
                                           verify_attention)
 
@@ -68,4 +69,38 @@ def paged_verify_ref(q: torch.Tensor, k_pool: torch.Tensor,
     (B, K, H, D)."""
     k = _gather_pages(k_pool, block_tables)
     v = _gather_pages(v_pool, block_tables)
+    return verify_attention(q, k, v, lengths)
+
+
+def _gather_dequantized(pool: torch.Tensor, scale_pool: torch.Tensor,
+                        block_tables: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """Gather an int8 pool's pages and their (P, page, Hkv, 1) scales
+    through the block table, then dequantize to ``dtype``."""
+    return kv_dequantize(_gather_pages(pool, block_tables),
+                         _gather_pages(scale_pool, block_tables), dtype)
+
+
+def paged_decode_quant_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, k_scale: torch.Tensor,
+                           v_scale: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """Plain version of the int8 paged decode kernel: int8 pools
+    (P, page, Hkv, D) with bf16 scale pools (P, page, Hkv, 1) riding the
+    same block table; gather pages and scales, dequantize to q's dtype,
+    then ``paged_decode_ref``'s attention.  Returns (B, 1, H, D)."""
+    k = _gather_dequantized(k_pool, k_scale, block_tables, q.dtype)
+    v = _gather_dequantized(v_pool, v_scale, block_tables, q.dtype)
+    return decode_attention(q, k, v, lengths)
+
+
+def paged_verify_quant_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, k_scale: torch.Tensor,
+                           v_scale: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """Plain version of the int8 paged verify kernel: as
+    ``paged_decode_quant_ref``, then ``paged_verify_ref``'s attention (query
+    j sees positions ``<= lengths[b] + j``).  Returns (B, K, H, D)."""
+    k = _gather_dequantized(k_pool, k_scale, block_tables, q.dtype)
+    v = _gather_dequantized(v_pool, v_scale, block_tables, q.dtype)
     return verify_attention(q, k, v, lengths)

@@ -10,7 +10,10 @@ round-robin, so admissions interleave with decode as under live traffic.
 
 The engines are slot engines by default, as in the reference; ``--paged``
 backs the nodes with paged-KV engines and ``--spec`` with speculative
-paged engines whose draft is ``cfg.draft()``.  On the card (the default)
+paged engines whose draft is ``cfg.draft()``.  ``--kv-quant`` stores the
+KV as int8 with bf16 per-(token, head) scales (``cfg.kv_quant``); it
+implies paged engines, and with ``--spec`` the target's pages are int8
+while the draft keeps fp caches.  On the card (the default)
 the nodes serve the full-width model in bfloat16, each with its own seeded
 random weights; on the CPU (``--device cpu``) they serve the reduced
 float32 config the reference driver runs, with the kernels' plain
@@ -18,9 +21,10 @@ versions::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --nodes 2 --requests 8 --max-new 8
     PYTHONPATH=src python -m repro_torch.launch.serve --spec --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --spec --kv-quant
 
-``--disagg``, ``--kv-quant`` and ``--trace`` are not ported yet: the
-driver stops with an error naming their ROADMAP item.
+``--disagg`` and ``--trace`` are not ported yet: the driver stops with an
+error naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -205,7 +209,10 @@ def main(argv=None) -> int:
     ap.add_argument("--disagg", action="store_true",
                     help="not ported yet (ROADMAP Queue A item 5)")
     ap.add_argument("--kv-quant", action="store_true",
-                    help="not ported yet (ROADMAP Queue A item 5)")
+                    help="store KV as int8 with per-token-per-head scale "
+                         "pools: half the bytes per resident token, so the "
+                         "same budget holds 2x the pages (DESIGN.md "
+                         "§6.1-paged; implies paged)")
     ap.add_argument("--trace", metavar="PATH",
                     help="not ported yet (ROADMAP Queue A item 5)")
     ap.add_argument("--device", default="cuda",
@@ -213,17 +220,22 @@ def main(argv=None) -> int:
                          "hand-written kernels; cpu: the reduced float32 "
                          "config on their plain versions")
     args = ap.parse_args(argv)
+    if args.kv_quant and args.disagg:
+        ap.error("--kv-quant is colocated-only: KV handoffs carry fp "
+                 "pages (DESIGN.md §6.1-paged)")
     for flag, what in (("disagg", "disaggregated prefill/decode engines"),
-                       ("kv_quant", "int8 KV pages, Queue B rows 2q/3q"),
                        ("trace", "lifecycle tracing and obs/export.py")):
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not ported yet ({what}; "
                      f"ROADMAP Queue A item 5)")
-    mode = "spec" if args.spec else "paged" if args.paged else "slot"
+    mode = ("spec" if args.spec else
+            "paged" if args.paged or args.kv_quant else "slot")
     dev = require_device(args.device)
     cfg = get_config(args.arch)
     cfg = (cfg.replace(dtype="bfloat16") if dev.type == "cuda"
            else cfg.smoke().replace(dtype="float32"))
+    if args.kv_quant:
+        cfg = cfg.replace(kv_quant=True)
     run(cfg, nodes=args.nodes, requests=args.requests, max_new=args.max_new,
         duel_rate=args.duel_rate, seed=args.seed, device=dev, mode=mode,
         spec_k=args.spec_k)

@@ -2,8 +2,9 @@
 
 Port of ``repro.models.attention``: the masking constant,
 ``reference_attention`` (naive masked softmax over the whole sequence),
-``decode_attention`` with per-row cache lengths and the multi-token
-``verify_attention`` of speculative decoding.  Masked scores take the
+``decode_attention`` with per-row cache lengths, the multi-token
+``verify_attention`` of speculative decoding, and the int8 KV codec
+``kv_quantize`` / ``kv_dequantize``.  Masked scores take the
 finite constant below, never ``-inf``: ``exp`` then underflows cleanly, a
 fully masked row averages V uniformly instead of producing NaN, and the
 kernels use the same constant so the two cannot disagree on what "masked"
@@ -12,7 +13,7 @@ means.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -109,3 +110,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     return out.to(q.dtype)
+
+
+def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per-(token, head) quantization of K/V.
+
+    x: (..., D) -> (int8 values (..., D), bf16 scales (..., 1)).  In fp32:
+    the scale is max|x| / 127 floored at 1e-8; values are divided by it,
+    rounded half to even and clipped to +-127.  The scale is stored as
+    bf16, so dequantization multiplies by the rounded scale.  XLA on the
+    CPU lowers the reference's division as a true division, as here; the
+    tests pin the two bit-equal."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                        min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """int8 values times their scales, in fp32, cast to ``dtype``."""
+    return (q.float() * scale.float()).to(dtype)

@@ -4,17 +4,21 @@ Port of the serving paths of ``repro.models.dense``: ``init``,
 right-padded ``prefill`` with ``last_positions``, the slot cache
 (``init_cache``, ``decode_step`` with (B,) lengths), the KV page pools
 (``init_paged_pools``, ``prefill_to_pages``, ``_scatter_pool_writes``),
-``paged_decode_step`` and the speculative ``paged_verify_step``.  Public
-functions keep the reference's layouts: weights ``(d_in, d_out)`` stacked
-on a leading layer axis, slot caches ``(L, B, C, Hkv, dh)``, pools
-``(L, P, page, Hkv, dh)``.
+``paged_decode_step`` and the speculative ``paged_verify_step``, each
+with its int8 form (``cfg.kv_quant``: int8 K/V plus bf16 per-(token, head)
+scales, quantized on write).  Public functions keep the reference's
+layouts: weights ``(d_in, d_out)`` stacked on a leading layer axis, slot
+caches ``(L, B, C, Hkv, dh)``, pools ``(L, P, page, Hkv, dh)``, scales
+``(..., 1)``.
 
 Attention goes through ``kernels.ops``: the prefill through the prefill
 kernel (where the reference calls its jnp ``flash_attention``), a slot
 decode step through the contiguous decode kernel (the reference's jnp
-``decode_attention``), a paged decode or verify step through the paged
-decode or verify kernel (where the reference gathers pages and calls its
-jnp ``decode_attention`` or ``verify_attention``).  The projections and
+``decode_attention``; an int8 slot cache is dequantized first, as the
+reference does), a paged decode or verify step through the paged decode
+or verify kernel, or their int8 forms on int8 pools (where the reference
+gathers and dequantizes pages and calls its jnp ``decode_attention`` or
+``verify_attention``).  The projections and
 the MLP stay ``torch.matmul``, as the reference leaves them to XLA.
 
 Unlike the reference, whose arrays are immutable, slot caches and pools
@@ -32,9 +36,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
+from repro_torch.models.attention import kv_dequantize, kv_quantize
 from repro_torch.models.config import ModelConfig
 
 _POOLS = ("k_pool", "v_pool")
+_SCALE_POOLS = ("k_scale_pool", "v_scale_pool")
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -134,7 +140,9 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     where position p sits at slot p % window.  ``last_positions`` ((B,))
     takes each row's logits at its own final real token.  Returns
     (logits (B, 1, padded_vocab), {"k", "v": (L, B, cap, Hkv, dh),
-    "length": S}).
+    "length": S}); with ``cfg.kv_quant`` the returned K/V are int8 plus
+    "k_scale"/"v_scale" (L, B, cap, Hkv, 1) bf16 (attention itself ran on
+    the fp k/v).
     """
     b, s = tokens.shape
     x = params["embed"][tokens]
@@ -143,15 +151,19 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         cap = max(s, capacity or s)
     else:
         cap = min(cfg.sliding_window, capacity or cfg.sliding_window)
-    ks, vs = [], []
+    kvs: Dict[str, list] = {}
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
         q, k, v = _project_qkv(lp, cfg, h, positions)
         attn = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
         x = _finish_block(lp, cfg, x, attn)
-        ks.append(k)
-        vs.append(v)
+        out = {"k": k, "v": v}
+        if cfg.kv_quant:
+            out["k"], out["k_scale"] = kv_quantize(k)
+            out["v"], out["v_scale"] = kv_quantize(v)
+        for name, a in out.items():
+            kvs.setdefault(name, []).append(a)
 
     def ring(a: torch.Tensor) -> torch.Tensor:
         # (L, B, S, Hkv, dh) -> (L, B, cap, Hkv, dh)
@@ -165,8 +177,8 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     else:
         x_last = x[torch.arange(b, device=x.device),
                    last_positions.long()][:, None]
-    cache = {"k": ring(torch.stack(ks)), "v": ring(torch.stack(vs)),
-             "length": s}
+    cache = {name: ring(torch.stack(a)) for name, a in kvs.items()}
+    cache["length"] = s
     return logits_of(params, x_last), cache
 
 
@@ -175,14 +187,23 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype: Optional[torch.dtype] = None,
                device: torch.device | str = "cpu") -> Dict:
     """A zero slot cache {"k", "v": (L, batch, cap, Hkv, dh), "length": ()}
-    (cap = ``capacity``, or the window of a sliding-window config)."""
+    (cap = ``capacity``, or the window of a sliding-window config).  With
+    ``cfg.kv_quant`` "k"/"v" are int8 and "k_scale"/"v_scale"
+    (L, batch, cap, Hkv, 1) bf16 ride beside them, as ``prefill`` returns
+    them (the reference's ``init_cache`` allocates fp caches only; its
+    engine takes the quantized layout from prefill, as the port's does)."""
     cap = (capacity if cfg.sliding_window is None
            else min(capacity, cfg.sliding_window))
     shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.head_dim)
-    dt = dtype or _dt(cfg)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "length": torch.zeros((), dtype=torch.int32, device=device)}
+    dt = torch.int8 if cfg.kv_quant else (dtype or _dt(cfg))
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device),
+             "length": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.kv_quant:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.bfloat16,
+                                      device=device)
+    return cache
 
 
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
@@ -192,17 +213,18 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     cache: {"k"/"v": (L, B, C, Hkv, dh), "length": (B,) int32}; token:
     (B, 1).  Row b's new KV goes to slot ``length[b] % C`` of its cache row,
     in place, then it attends its ``min(length[b] + 1, C)`` valid
-    positions.  Returns (logits (B, 1, padded_vocab), cache with length +
-    1).  The reference's scalar-length lock-step branch (wave batching and
-    the sequence-sharded decode) is ROADMAP Queue A items 7 and 10; int8
-    caches are item 5."""
+    positions.  With ``cfg.kv_quant`` the cache is int8 plus
+    "k_scale"/"v_scale": the new KV is quantized on write and the layer's
+    cache dequantized to ``cfg.dtype`` before the decode kernel, as the
+    reference does.  Returns (logits (B, 1, padded_vocab), cache with
+    length + 1).  The reference's scalar-length lock-step branch (wave
+    batching and the sequence-sharded decode) is ROADMAP Queue A items 7
+    and 10."""
     length = cache["length"]
     if length.ndim != 1:
         raise NotImplementedError(
             "scalar cache length (lock-step wave decode): ROADMAP Queue A "
             "items 7 and 10; the slot engine passes (B,) lengths")
-    if cfg.kv_quant:
-        raise NotImplementedError("int8 slot caches: ROADMAP Queue A item 5")
     x = params["embed"][token]
     cap = cache["k"].shape[2]
     lens = length.long()
@@ -214,12 +236,19 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
         kc, vc = cache["k"][l], cache["v"][l]
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
         q, k, v = _project_qkv(lp, cfg, h, lens[:, None])
-        kc.index_put_((rows, slot), k[:, 0])
-        vc.index_put_((rows, slot), v[:, 0])
+        writes = {"k": k, "v": v}
+        if cfg.kv_quant:
+            writes["k"], writes["k_scale"] = kv_quantize(k)
+            writes["v"], writes["v_scale"] = kv_quantize(v)
+        for name, w in writes.items():
+            cache[name][l].index_put_((rows, slot), w[:, 0])
+        if cfg.kv_quant:
+            kc = kv_dequantize(kc, cache["k_scale"][l], _dt(cfg))
+            vc = kv_dequantize(vc, cache["v_scale"][l], _dt(cfg))
         attn = ops.decode(q, kc, vc, n_valid)
         x = _finish_block(lp, cfg, x, attn)
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
-    return logits_of(params, x), {"k": cache["k"], "v": cache["v"],
+    return logits_of(params, x), {**cache,
                                   "length": (length + 1).to(length.dtype)}
 
 
@@ -230,26 +259,42 @@ def init_paged_pools(cfg: ModelConfig, num_pages: int, page_size: int,
     """The shared KV page pools {"k_pool", "v_pool"}, each
     (L, P, page, Hkv, dh) zeros.  Page 0 is the engine's scratch page:
     writes of rows without an allocated page land there and are never
-    attended.  int8 pools (``cfg.kv_quant``) are ROADMAP Queue B row 2q."""
-    if cfg.kv_quant:
-        raise NotImplementedError("int8 KV pages: ROADMAP Queue B row 2q")
+    attended.  With ``cfg.kv_quant`` the pools are int8 (``dtype`` is not
+    read) and two bf16 scale pools {"k_scale_pool", "v_scale_pool"}
+    (L, P, page, Hkv, 1) ride the same block table, one scale per
+    (token, head) entry; a never-written entry dequantizes to 0."""
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
              cfg.head_dim)
+    if cfg.kv_quant:
+        pools = {n: torch.zeros(shape, dtype=torch.int8, device=device)
+                 for n in _POOLS}
+        for n in _SCALE_POOLS:
+            pools[n] = torch.zeros(shape[:-1] + (1,), dtype=torch.bfloat16,
+                                   device=device)
+        return pools
     dt = dtype or _dt(cfg)
     return {n: torch.zeros(shape, dtype=dt, device=device) for n in _POOLS}
+
+
+def _pool_names(pools: Dict) -> Tuple[str, ...]:
+    """The pool names ``pools`` holds: K/V, plus the scale pools when the
+    pools are int8."""
+    return _POOLS + (_SCALE_POOLS if _SCALE_POOLS[0] in pools else ())
 
 
 def prefill_to_pages(pools: Dict, kv: Dict,
                      phys_pages: torch.Tensor) -> Dict:
     """Scatter a contiguous prefill cache into pool pages, in place.
 
-    kv: {"k", "v"} (L, n, plen, Hkv, dh) with plen a multiple of the page
-    size; phys_pages: (n, plen // page) physical page per (row, logical
-    page) -- entries past a row's real prompt point at the scratch page 0
-    (several rows may alias it).  Returns ``pools``."""
+    kv: {"k", "v"[, "k_scale", "v_scale"]} (L, n, plen, Hkv, dh|1) with
+    plen a multiple of the page size -- a quantized prefill cache is
+    scattered as it is, not re-quantized, so pages hold the slot cache's
+    values bit for bit; phys_pages: (n, plen // page) physical page per
+    (row, logical page) -- entries past a row's real prompt point at the
+    scratch page 0 (several rows may alias it).  Returns ``pools``."""
     page = pools["k_pool"].shape[2]
     idx = phys_pages.long()
-    for pname in _POOLS:
+    for pname in _pool_names(pools):
         src = kv[pname[:-5]]
         L, n, plen = src.shape[:3]
         src = src.reshape((L, n, plen // page, page) + tuple(src.shape[3:]))
@@ -260,20 +305,39 @@ def prefill_to_pages(pools: Dict, kv: Dict,
 def _scatter_pool_writes(pools: Dict, l: int, phys_page: torch.Tensor,
                          page_slot: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, squeeze: bool) -> None:
-    """Write new tokens' KV into layer ``l``'s pages, in place.  k/v:
-    (B, K, Hkv, dh); phys_page/page_slot: (B,) when ``squeeze`` (one token)
-    else (B, K)."""
-    for pname, w in (("k_pool", k), ("v_pool", v)):
+    """Write new tokens' KV into layer ``l``'s pages, in place, quantizing
+    on write for int8 pools.  k/v: (B, K, Hkv, dh); phys_page/page_slot:
+    (B,) when ``squeeze`` (one token) else (B, K)."""
+    writes = {"k_pool": k, "v_pool": v}
+    if _SCALE_POOLS[0] in pools:
+        writes["k_pool"], writes["k_scale_pool"] = kv_quantize(k)
+        writes["v_pool"], writes["v_scale_pool"] = kv_quantize(v)
+    for pname, w in writes.items():
         pools[pname][l].index_put_((phys_page, page_slot),
                                    w[:, 0] if squeeze else w)
+
+
+def _paged_attention(pools: Dict, l: int, q: torch.Tensor,
+                     block_tables: torch.Tensor, lengths: torch.Tensor,
+                     verify: bool) -> torch.Tensor:
+    """Layer ``l``'s paged decode (``verify`` False) or verify attention,
+    through the int8 kernels when the pools carry scales."""
+    kp, vp = pools["k_pool"][l], pools["v_pool"][l]
+    if _SCALE_POOLS[0] in pools:
+        op = ops.paged_verify_quant if verify else ops.paged_decode_quant
+        return op(q, kp, vp, pools["k_scale_pool"][l],
+                  pools["v_scale_pool"][l], block_tables, lengths)
+    op = ops.paged_verify if verify else ops.paged_decode
+    return op(q, kp, vp, block_tables, lengths)
 
 
 def paged_decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
                       token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """One decode step against paged KV.
 
-    cache: {"k_pool"/"v_pool": (L, P, page, Hkv, dh),
-    "block_tables": (B, maxp) int32, "lengths": (B,) int32}; token: (B, 1).
+    cache: {"k_pool"/"v_pool": (L, P, page, Hkv, dh)[, "k_scale_pool"/
+    "v_scale_pool": (L, P, page, Hkv, 1)], "block_tables": (B, maxp)
+    int32, "lengths": (B,) int32}; token: (B, 1).
     Each row decodes at its own depth: its new KV goes to physical page
     ``bt[b, lengths[b] // page]`` at slot ``lengths[b] % page`` (the page
     index clamped to the table, as the reference clamps), then it attends
@@ -291,15 +355,14 @@ def paged_decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     phys_page = bt[rows, torch.clamp(lens // page, max=maxp - 1)].long()
     page_slot = lens % page
     attend = (lengths + 1).to(torch.int32)
-    pools = {n: cache[n] for n in _POOLS}
+    pools = {n: cache[n] for n in _pool_names(cache)}
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
         q, k, v = _project_qkv(lp, cfg, h, lens[:, None])
         _scatter_pool_writes(pools, l, phys_page, page_slot, k, v,
                              squeeze=True)
-        attn = ops.paged_decode(q, pools["k_pool"][l], pools["v_pool"][l],
-                                bt, attend)
+        attn = _paged_attention(pools, l, q, bt, attend, verify=False)
         x = _finish_block(lp, cfg, x, attn)
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
     return logits_of(params, x), {**pools, "block_tables": bt,
@@ -331,15 +394,14 @@ def paged_verify_step(params: Dict, cfg: ModelConfig, cache: Dict,
     page_idx = torch.clamp(pos_abs // page, max=maxp - 1)
     phys_page = bt[rows[:, None], page_idx].long()
     page_slot = pos_abs % page
-    pools = {n: cache[n] for n in _POOLS}
+    pools = {n: cache[n] for n in _pool_names(cache)}
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
         q, k, v = _project_qkv(lp, cfg, h, pos_abs)
         _scatter_pool_writes(pools, l, phys_page, page_slot, k, v,
                              squeeze=False)
-        attn = ops.paged_verify(q, pools["k_pool"][l], pools["v_pool"][l],
-                                bt, lengths)
+        attn = _paged_attention(pools, l, q, bt, lengths, verify=True)
         x = _finish_block(lp, cfg, x, attn)
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
     return logits_of(params, x), {**pools, "block_tables": bt,

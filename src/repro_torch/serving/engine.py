@@ -21,6 +21,21 @@ Port of ``repro.serving.engine`` in its three modes:
   cache, proposes ``spec_k`` tokens greedily; the target verifies the
   pending token and the drafts in ONE paged verify forward and emits the
   longest draft prefix matching its own greedy choices.  Greedy-only.
+* **prefix cache** (``paged=True, prefix_cache=True``; DESIGN.md
+  §6.1-prefix): every full prompt page is content-addressed by a
+  page-aligned crc32 hash chain and carries a holder refcount; a prompt
+  whose head is already resident shares those pages and computes only
+  its uncached suffix, in ONE paged verify forward against them (the warm
+  prefill).  A divergence mid-page is a chain miss (copy-on-write at page
+  granularity).  Released cached pages go *cold*: still addressable,
+  evicted least recently used first, only when the free list is empty.
+
+Each mode takes int8 KV (``cfg.kv_quant``; DESIGN.md §6.1-paged): slot
+caches and page pools hold int8 K/V with bf16 per-(token, head) scales,
+quantized on write.  A paged engine's pool then holds twice the pages of
+the same budget (``quantized_pages``, the rule the simulator shares), and
+one free list covers the K/V pages and their scale pages.  A speculative
+engine's draft keeps fp caches (``cfg.draft()`` turns int8 off).
 
 Prompts are right-padded, which causal attention keeps inert, so a
 request's greedy output does not depend on what it is batched with: the
@@ -28,9 +43,9 @@ port's greedy streams equal the reference engine's token for token on the
 same weights, in every mode.
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: the prefix cache, the disaggregated KV handoff and int8 KV (Queue A
-item 5), and families without slot decode, which the reference serves by
-left-padded wave batching (Queue A item 7).
+item: the disaggregated KV handoff (Queue A item 5), and families without
+slot decode, which the reference serves by left-padded wave batching
+(Queue A item 7).
 
 Wall times are measured by ``Tracer.wall`` blocks that end in a device
 synchronisation, because they feed ``EngineStats`` and so
@@ -41,6 +56,8 @@ in place.
 
 from __future__ import annotations
 
+import zlib
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -51,9 +68,11 @@ from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import _WALL, get_registry, get_tracer, wall_now
 from repro_torch.serving.sampling import masked_logits, sample
-from repro_torch.sim.executor import paged_admit_ok, pages_for
-from repro_torch.sim.servicemodel import (_SPEC_ALPHA0, _SPEC_EMA_BETA,
-                                          _SPEC_K)
+from repro_torch.sim.executor import (paged_admit_ok, pages_for,
+                                      prefix_hit_pages, quantized_pages)
+from repro_torch.sim.servicemodel import (_PREFIX_FINGERPRINT_K,
+                                          _PREFIX_HIT_EMA_BETA, _SPEC_ALPHA0,
+                                          _SPEC_EMA_BETA, _SPEC_K)
 
 
 def _greedy_tokens(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
@@ -127,13 +146,6 @@ class Engine:
                  prefix_cache: bool = False,
                  spec_draft: Optional[Tuple[ModelConfig, Dict]] = None,
                  spec_k: int = _SPEC_K) -> None:
-        if prefix_cache:
-            raise NotImplementedError(
-                "prefix caching: ROADMAP Queue A item 5 (its warm prefill "
-                "runs the paged verify kernel, which is ported)")
-        if cfg.kv_quant:
-            raise NotImplementedError(
-                "int8 KV: ROADMAP Queue A item 5 (Queue B rows 2q and 3q)")
         fam = registry.get_family(cfg)
         # right-padding is only inert with a full cache: a sliding-window
         # ring keeps the last `window` positions of the PADDED sequence, so
@@ -177,9 +189,12 @@ class Engine:
             self._scatter_pages = fam.prefill_to_pages
             self._init_pools = fam.init_paged_pools
             # the page pool: page 0 is scratch, pages 1.. are usable
-            self._pool_pages = (int(num_pages) if num_pages is not None
-                                else max_batch * pages_for(
-                                    2 * bucket, self.page_size)) + 1
+            usable = (int(num_pages) if num_pages is not None
+                      else max_batch * pages_for(2 * bucket, self.page_size))
+            # int8 KV pages: the same budget holds twice the pages (the
+            # capacity rule the simulator shares); one free list covers the
+            # K/V pages and their scale pages
+            self._pool_pages = quantized_pages(usable, cfg.kv_quant) + 1
             self._kv: Optional[Dict] = None             # lazy device alloc
             self._free: List[int] = list(range(1, self._pool_pages))
             self._held: List[List[int]] = [[] for _ in range(max_batch)]
@@ -188,6 +203,23 @@ class Engine:
             # admission order, for LIFO preemption under pool pressure
             self._admit_order = np.zeros(max_batch, np.int64)
             self._admit_seq = 0
+            # prefix cache (DESIGN.md §6.1-prefix): content-addressed pages.
+            # The maps exist, empty, on every paged engine so the page
+            # accounting is uniform; only ``prefix_cache=True`` fills them.
+            self._hash_to_page: Dict[int, int] = {}   # chain hash -> page
+            self._page_to_hash: Dict[int, int] = {}   # page -> chain hash
+            self._holders: Dict[int, int] = {}        # page -> holder count
+            # cached pages without a holder, least recently released first:
+            # evicted only when the free list is empty
+            self._evictable: "OrderedDict[int, None]" = OrderedDict()
+            # depth-1 chain hashes by recency: the resident-prefix
+            # fingerprint load snapshots advertise
+            self._prefix_heads: "OrderedDict[int, None]" = OrderedDict()
+            # request id -> pages claimed for a KV handoff on the wire
+            self._pins: Dict[str, List[int]] = {}
+            self.prefix_hit_rate = 0.0
+            self.prefix_hit_tokens = 0
+            self.prefix_lookup_tokens = 0
 
         # speculative decoding (DESIGN.md §6.1-spec)
         self.spec = spec_draft is not None
@@ -224,6 +256,19 @@ class Engine:
             self.spec_alpha = _SPEC_ALPHA0
             # spec_accept_hist[a]: verify steps that accepted a of spec_k
             self.spec_accept_hist = [0] * (self.spec_k + 1)
+
+        self.prefix_cache = bool(prefix_cache)
+        if self.prefix_cache:
+            if not self.paged:
+                raise ValueError("prefix caching requires paged=True "
+                                 "(it shares pool pages across requests)")
+            if fam.paged_verify is None:
+                raise ValueError(
+                    "prefix caching needs a paged_verify-capable family: "
+                    "the cached-suffix prefill is a multi-token verify")
+            # the warm prefill runs the verify forward over the uncached
+            # suffix, attending the shared pages through the block table
+            self._verify = fam.paged_verify
 
     def _pad_bucket(self, n: int) -> int:
         b = self.bucket
@@ -282,13 +327,19 @@ class Engine:
             cached_pages=0, prefix_hit_rate=0.0, resident_prefixes=())
         if self.paged:
             usable = self._pool_pages - 1
-            used = usable - len(self._free)
+            cold = len(self._evictable)
+            used = usable - len(self._free) - cold
             snap.update(
                 pages_used=used, pages_total=usable,
-                free_pages=len(self._free), page_size=self.page_size,
+                # cold cached pages are evicted on demand, so admission
+                # counts them as free
+                free_pages=len(self._free) + cold, page_size=self.page_size,
                 # paged KV charges pages actually held, not reservations
                 kv_used=used * self.page_size,
-                kv_budget=usable * self.page_size)
+                kv_budget=usable * self.page_size,
+                cached_pages=cold, prefix_hit_rate=self.prefix_hit_rate,
+                resident_prefixes=tuple(reversed(self._prefix_heads))
+                [:_PREFIX_FINGERPRINT_K])
         else:
             snap.update(
                 kv_used=int(sum(self._lengths[i] + s.req.max_new - len(s.out)
@@ -411,15 +462,18 @@ class Engine:
         if not resident:
             # grow the pool while nothing is resident, so any single
             # admitted request can always run to completion -- this is what
-            # makes LIFO preemption livelock-free
+            # makes LIFO preemption livelock-free.  Growth reallocates every
+            # page, so it forgets the prefix cache, and waits while pins
+            # hold page content.
             needed = max(self._pages(self._required(r))
                          for r in self._queue[:self.max_batch])
-            if self._kv is None or needed > usable:
+            if (self._kv is None or needed > usable) and not self._pins:
                 self._pool_pages = max(self._pool_pages, needed + 1)
                 usable = self._pool_pages - 1
                 self._kv = None
                 self._logits = None
                 self._free = list(range(1, self._pool_pages))
+                self._flush_prefix_cache()
             if self.spec:
                 # the draft cache grows at the same idle points
                 dneeded = max(self._draft_required(r)
@@ -429,20 +483,32 @@ class Engine:
                     self._draft_capacity = max(self._draft_capacity, dneeded)
                     self._draft_cache = None
         free_slots = [i for i, s in enumerate(self._slots) if s is None]
-        free_now = len(self._free)
+        # cold cached pages are evictable on demand, so they count as free,
+        # but a cold page a taken request will share stops being evictable
+        # (it revives to one holder), so it costs headroom exactly once
+        free_now = len(self._free) + len(self._evictable)
+        cold_reserved: set = set()
         take: List[Tuple[int, GenRequest]] = []
         rest: List[GenRequest] = []
         taking = resident
         for r in self._queue:
-            need = self._pages(len(r.tokens))
-            if (free_slots and need <= free_now
+            hit_pages = (self._prefix_lookup_pages(r.tokens)
+                         if self.prefix_cache else [])
+            cold_cost = sum(1 for pg in hit_pages
+                            if pg in self._evictable
+                            and pg not in cold_reserved)
+            suffix_tokens = len(r.tokens) - len(hit_pages) * self.page_size
+            need = self._pages(suffix_tokens)
+            if (free_slots and need + cold_cost <= free_now
                     and self._pages(self._required(r)) <= usable
                     and (not self.spec
                          or self._draft_required(r) <= self._draft_capacity)
-                    and paged_admit_ok(free_now, len(r.tokens),
+                    and paged_admit_ok(free_now - cold_cost, suffix_tokens,
                                        self.page_size, resident=taking)):
                 take.append((free_slots.pop(0), r))
-                free_now -= need
+                free_now -= need + cold_cost
+                cold_reserved.update(pg for pg in hit_pages
+                                     if pg in self._evictable)
                 taking = True
             else:
                 rest.append(r)
@@ -481,10 +547,27 @@ class Engine:
 
     def _prefill_paged(self, take: List[Tuple[int, GenRequest]]) -> None:
         """Claim the admitted rows' prompt pages, then prefill them (and the
-        draft's cache rows, speculative mode)."""
+        draft's cache rows, speculative mode).  Rows without a cached
+        prefix take the cold path (right-padded prefill, then a page
+        scatter); with the prefix cache, rows whose prompt head is resident
+        share those pages and compute only the uncached suffix (the warm
+        path)."""
+        ps = self.page_size
+        # every acquire happens before any register: rows admitted in one
+        # batch never share each other's fresh pages, which a warm row
+        # would otherwise attend while another row still writes them
+        shared: Dict[int, List[int]] = {}
         for i, r in take:
-            pages = [self._free.pop()
-                     for _ in range(self._pages(len(r.tokens)))]
+            shared[i] = (self._prefix_acquire(np.asarray(r.tokens, np.int32))
+                         if self.prefix_cache else [])
+        for i, r in take:
+            hits = len(shared[i])
+            fresh = [self._claim_page()
+                     for _ in range(self._pages(len(r.tokens)) - hits)]
+            if self.prefix_cache:
+                self._prefix_register(np.asarray(r.tokens, np.int32), hits,
+                                      fresh)
+            pages = shared[i] + fresh
             self._held[i] = pages
             self._tables[i, :] = 0
             self._tables[i, : len(pages)] = pages
@@ -492,13 +575,29 @@ class Engine:
             self._lengths[i] = len(r.tokens)
             self._admit_order[i] = self._admit_seq
             self._admit_seq += 1
-        self._prefill_cold(take)
+        cold = [(i, r) for i, r in take if not shared[i]]
+        warm = [(i, r) for i, r in take if shared[i]]
+        if cold:
+            self._prefill_cold(cold)
+        if warm:
+            self._prefill_warm(warm, {i: len(shared[i]) for i, _ in warm})
         now = wall_now()                # started_at: stamped after prefill
         for _, r in take:
             r.started_at = now
         self.stats.batches += 1
         self.stats.peak_resident = max(self.stats.peak_resident,
                                        self.active_slots())
+        if self.prefix_cache:
+            reg = get_registry()
+            for i, r in take:
+                cached = len(shared[i]) * ps
+                p = max(1, len(r.tokens))
+                self.prefix_lookup_tokens += p
+                self.prefix_hit_tokens += cached
+                self.prefix_hit_rate += _PREFIX_HIT_EMA_BETA * (
+                    cached / p - self.prefix_hit_rate)
+                reg.counter("engine.prefix.lookup_tokens").inc(p)
+                reg.counter("engine.prefix.hit_tokens").inc(cached)
         if self.spec:
             self._spec_prefill_draft(take)
 
@@ -538,6 +637,156 @@ class Engine:
         rows = torch.tensor([i for i, _ in cold], device=dev)
         self._logits[rows] = logits
 
+    def _prefill_warm(self, warm: List[Tuple[int, GenRequest]],
+                      hits: Dict[int, int]) -> None:
+        """Cached-suffix prefill (DESIGN.md §6.1-prefix): warm rows enter
+        with their length set to their cached token count, and ONE verify
+        forward over every row computes the uncached suffixes (K = the
+        longest, rounded up to a page) attending the shared prefix pages.
+        Other rows ride along as in a speculative verify: their writes
+        land past their valid length or on the scratch page, and their
+        carried logits are kept."""
+        ps = self.page_size
+        assert self._kv is not None     # a chain hit implies an earlier prefill
+        suf_lens = {i: len(r.tokens) - hits[i] * ps for i, r in warm}
+        width = -(-max(suf_lens.values()) // ps) * ps   # page-rounded K
+        toks = np.full((self.max_batch, width), self.eos_id, np.int64)
+        for i, r in warm:
+            toks[i, : suf_lens[i]] = np.asarray(r.tokens[hits[i] * ps:])
+            self._lengths[i] = hits[i] * ps   # valid tokens: the cached prefix
+        # every row writes at lengths + j for j < K: the table must be wide
+        # enough that each of those lookups finds the row's own page or a
+        # zero entry (the scratch page), never clamps back onto a page --
+        # the pools are written in place, and a shared page must stay as
+        # the cold forward left it
+        need_w = max((int(self._lengths[i]) + width - 1) // ps + 1
+                     for i, s in enumerate(self._slots) if s is not None)
+        self._grow_tables(need_w)
+        dev = self.device
+        with get_tracer().wall("engine.prefill", who=self.owner, path="warm",
+                               rows=len(warm), tokens=width * len(warm),
+                               cached_pages=sum(hits.values())) as sp:
+            vlogits, _ = self._verify(self.params, self.cfg,
+                                      self._paged_cache(width),
+                                      torch.from_numpy(toks).to(dev))
+            _sync(dev)
+        self.stats.prefill_wall_s += sp.dt
+        self.stats.prefill_tokens += width * len(warm)
+        rows = torch.tensor([i for i, _ in warm], device=dev)
+        pos = torch.tensor([suf_lens[i] - 1 for i, _ in warm], device=dev)
+        self._logits[rows] = vlogits[rows, pos][:, None]
+        for i, r in warm:
+            self._lengths[i] = len(r.tokens)
+
+    # ------------------------------------------------ prefix cache internals
+    # (DESIGN.md §6.1-prefix): content-addressed pages with holder counts;
+    # the free list, the cold (evictable) set and the held pages partition
+    # the pool.
+    def _chain_hashes(self, tokens: np.ndarray) -> List[int]:
+        """Cumulative page-aligned content hashes over the prompt's full
+        pages, ``h_i = crc32(page_i, h_{i-1})``: two prompts share pages
+        exactly up to their first differing page."""
+        arr = np.ascontiguousarray(np.asarray(tokens, np.int32))
+        ps = self.page_size
+        out: List[int] = []
+        h = 0
+        for i in range(len(arr) // ps):
+            h = zlib.crc32(arr[i * ps:(i + 1) * ps].tobytes(), h)
+            out.append(h)
+        return out
+
+    def _prefix_match(self, tokens: np.ndarray) -> List[int]:
+        """The chain hashes of the cached pages a prompt would reuse:
+        the resident head of its chain, capped by the shared hit rule."""
+        hashes = self._chain_hashes(tokens)
+        matched = 0
+        for h in hashes:
+            if h not in self._hash_to_page:
+                break
+            matched += 1
+        hits = prefix_hit_pages(len(tokens), self.page_size,
+                                matched * self.page_size)
+        return hashes[:hits]
+
+    def _prefix_lookup_pages(self, tokens: np.ndarray) -> List[int]:
+        """Dry chain walk: the cached pages a prompt would reuse (no holder
+        counts move; ``_prefix_acquire`` claims them at prefill)."""
+        return [self._hash_to_page[h] for h in self._prefix_match(tokens)]
+
+    def _prefix_acquire(self, tokens: np.ndarray) -> List[int]:
+        """Claim the cached prefix pages of a row about to prefill: add a
+        holder to each (reviving cold pages out of the eviction order) and
+        return them in chain order."""
+        hashes = self._prefix_match(tokens)
+        pages: List[int] = []
+        for h in hashes:
+            pg = self._hash_to_page[h]
+            self._evictable.pop(pg, None)
+            self._holders[pg] = self._holders.get(pg, 0) + 1
+            pages.append(pg)
+        if pages and hashes[0] in self._prefix_heads:
+            self._prefix_heads.move_to_end(hashes[0])
+        return pages
+
+    def _prefix_register(self, tokens: np.ndarray, hits: int,
+                         fresh: List[int]) -> None:
+        """Enter a row's freshly computed FULL prompt pages into the chain.
+        A partial tail page stays private (decode keeps writing into it),
+        as does a page whose hash another page already holds (the first
+        writer wins)."""
+        hashes = self._chain_hashes(tokens)
+        if hits and hashes[0] in self._prefix_heads:
+            self._prefix_heads.move_to_end(hashes[0])
+        for j in range(hits, len(hashes)):
+            h, pg = hashes[j], fresh[j - hits]
+            if h in self._hash_to_page or pg in self._page_to_hash:
+                continue
+            self._hash_to_page[h] = pg
+            self._page_to_hash[pg] = h
+            if j == 0:
+                self._prefix_heads[h] = None
+                self._prefix_heads.move_to_end(h)
+
+    def _claim_page(self) -> int:
+        """One page for a row to hold: the free list first, else evict the
+        least recently released cold page (cold pages have no holder)."""
+        if self._free:
+            pg = self._free.pop()
+        else:
+            pg, _ = self._evictable.popitem(last=False)
+            h = self._page_to_hash.pop(pg, None)
+            if h is not None:
+                self._hash_to_page.pop(h, None)
+                self._prefix_heads.pop(h, None)
+        if self.prefix_cache:
+            self._holders[pg] = 1
+        return pg
+
+    def _drop_page(self, pg: int) -> None:
+        """One holder lets go of a page.  A page of the chain goes cold at
+        zero holders (still addressable, evictable), any other page back to
+        the free list; pages without a holder count (prefix cache off) go
+        straight to the free list."""
+        ref = self._holders.get(pg)
+        if ref is None:
+            self._free.append(pg)
+            return
+        if ref > 1:
+            self._holders[pg] = ref - 1
+            return
+        del self._holders[pg]
+        if pg in self._page_to_hash:
+            self._evictable[pg] = None       # the most recently released end
+        else:
+            self._free.append(pg)
+
+    def _flush_prefix_cache(self) -> None:
+        """A reallocated pool holds no content: forget the chain and the
+        cold set (the caller resets the free list)."""
+        for state in (self._hash_to_page, self._page_to_hash, self._holders,
+                      self._evictable, self._prefix_heads):
+            state.clear()
+
     def _spec_prefill_draft(self, take: List[Tuple[int, GenRequest]]) -> None:
         """Run the draft's prefill over the same right-padded prompts and
         copy its KV into the rows of the draft's slot cache.  The draft's
@@ -565,7 +814,31 @@ class Engine:
 
     # ------------------------------------------ disaggregated KV handoff
     def prefix_pin(self, req: GenRequest) -> int:
-        raise NotImplementedError("prefix caching: ROADMAP Queue A item 5")
+        """Decode-side cache consultation for a KV handoff (DESIGN.md
+        §6.1-prefix): claim the cached pages of ``req``'s prompt now, so
+        they cannot be evicted while the handoff is on the wire, keep them
+        under the request id, and return the cached token count.  Returns
+        0 when caching is off, the pool is unallocated, the request is
+        already pinned, or it would force a pool growth (which would strand
+        the pin)."""
+        if (not self.prefix_cache or self._kv is None
+                or req.rid in self._pins
+                or self._pages(self._required(req)) > self._pool_pages - 1):
+            return 0
+        pages = self._prefix_acquire(np.asarray(req.tokens, np.int32))
+        p = max(1, len(req.tokens))
+        cached = len(pages) * self.page_size
+        self.prefix_lookup_tokens += p
+        self.prefix_hit_tokens += cached
+        reg = get_registry()
+        reg.counter("engine.prefix.lookup_tokens").inc(p)
+        reg.counter("engine.prefix.hit_tokens").inc(cached)
+        self.prefix_hit_rate += _PREFIX_HIT_EMA_BETA * (
+            cached / p - self.prefix_hit_rate)
+        if not pages:
+            return 0
+        self._pins[req.rid] = pages
+        return cached
 
     def extract_handoffs(self, cached_tokens_fn=None):
         raise NotImplementedError(
@@ -577,30 +850,40 @@ class Engine:
 
     # ----------------------------------------------------- page pool dynamics
     def _release_pages(self, i: int) -> None:
-        self._free.extend(self._held[i])
+        for pg in self._held[i]:
+            self._drop_page(pg)
         self._held[i] = []
         self._tables[i, :] = 0
 
     def debug_page_accounting(self) -> Dict[str, int]:
-        """Reconcile the free list with the rows' holdings: every usable
-        page is exactly one of free or held by exactly one row."""
+        """Reconcile the free list, the cold set, the holder counts and the
+        rows' and pins' holdings: every usable page is exactly one of free,
+        cold or held; a shared page counts once; each page's holder count
+        equals its holders."""
         assert self.paged
         usable = self._pool_pages - 1
         free = set(self._free)
+        cold = set(self._evictable)
         held: Dict[int, int] = {}
-        for pages in self._held:
+        for pages in list(self._held) + list(self._pins.values()):
             for pg in pages:
                 held[pg] = held.get(pg, 0) + 1
         assert len(free) == len(self._free), "free list has duplicates"
+        assert not free & cold, "page both free and cold-cached"
         assert not free & set(held), "page both free and row-held"
-        shared = [pg for pg, n in held.items() if n > 1]
-        assert not shared, f"pages held by several rows: {shared}"
-        assert free | set(held) <= set(range(1, usable + 1)), \
-            "page id out of range"
-        assert len(free) + len(held) == usable, (
-            f"page leak/double-free: {len(free)} free + {len(held)} held "
-            f"!= {usable} usable")
-        return {"free": len(free), "cold": 0, "held": len(held)}
+        assert not cold & set(held), "page both cold and row-held"
+        for pg, n in held.items():
+            ref = self._holders.get(pg)
+            if ref is not None:
+                assert ref == n, f"page {pg}: holder count {ref} != {n}"
+            else:
+                assert n == 1, f"untracked page {pg} shared by {n} holders"
+        every = free | cold | set(held)
+        assert every <= set(range(1, usable + 1)), "page id out of range"
+        assert len(free) + len(cold) + len(held) == usable, (
+            f"page leak/double-free: {len(free)} free + {len(cold)} cold + "
+            f"{len(held)} held != {usable} usable")
+        return {"free": len(free), "cold": len(cold), "held": len(held)}
 
     def _preempt(self, i: int) -> None:
         """Reclaim row ``i``'s pages and requeue its request at the head of
@@ -636,8 +919,8 @@ class Engine:
             while (self._slots[i] is not None
                    and (self._lengths[i] + lookahead - 1) // self.page_size
                    >= len(self._held[i])):
-                if self._free:
-                    pg = self._free.pop()
+                if self._free or self._evictable:
+                    pg = self._claim_page()
                     self._held[i].append(pg)
                     idx = len(self._held[i]) - 1
                     self._grow_tables(idx + 1)

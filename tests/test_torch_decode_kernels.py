@@ -1,5 +1,7 @@
 """Port kernels of the slot and speculative paths: contiguous decode and
-paged multi-token verify, plus the prefill kernel at the draft's width.
+paged multi-token verify (any K: the kernel tiles the query rows), the
+int8-page forms of paged decode and verify, plus the prefill kernel at the
+draft's width.
 
 CPU cases hand the same numpy inputs (fixed seeds) to the port's plain
 versions (``decode_ref``, ``paged_verify_ref``) and to the JAX package's
@@ -8,8 +10,9 @@ Pallas kernels in interpret mode (``flash_decode_tpu``,
 ``tests/test_kernels.py`` (fp32 2e-5, bf16 2e-2 absolute).
 
 ``gpu`` cases hold each CUDA kernel against its plain version on the card
-(fp32 1e-4: the card sums in another order; bf16 2e-2) and skip without a
-card.  JAX is imported inside the CPU cases only:
+(fp32 1e-4: the card sums in another order; bf16 2e-2; the int8 kernels
+against ``paged_decode_quant_ref`` / ``paged_verify_quant_ref`` on the
+same int8 pages) and skip without a card.  JAX is imported inside the CPU cases only:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_decode_kernels.py
 """
@@ -20,7 +23,10 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (decode_ref, flash_ref, paged_decode_ref,
-                                     paged_verify_ref, verify_ref)
+                                     paged_decode_quant_ref,
+                                     paged_verify_quant_ref, paged_verify_ref,
+                                     verify_ref)
+from repro_torch.models.attention import kv_quantize
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 CUDA_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -185,7 +191,9 @@ def test_ops_cpu_tensors_take_the_plain_versions_of_both():
                             torch.from_numpy(ln))
     assert torch.isfinite(outv).all() and tuple(outv.shape) == q.shape
     assert set(ops.launch_counts()) == {"flash_attention", "paged_decode",
-                                        "flash_decode", "paged_verify"}
+                                        "flash_decode", "paged_verify",
+                                        "paged_decode_int8",
+                                        "paged_verify_int8"}
     assert not any(ops.launch_counts().values())
 
 
@@ -235,6 +243,12 @@ GPU_VERIFY = [(b, kq, h, hkv, 128, page, lengths, tp)
     (4, 5, 32, 8, 128, 16, (28, 1, 40, 0), None),  # qwen3-8b spec verify
     (4, 5, 32, 8, 128, 16, (30, 31, 9, 0), 2),     # riders past the table
     (2, 2, 32, 1, 128, 16, (700, 3), None),        # 64 rows per block
+    # more than 64 query rows: tiles of 64 (a ragged last one), the
+    # prefix cache's warm prefill of a page-rounded suffix
+    (2, 17, 32, 8, 128, 16, (40, 3), None),        # 68 rows, 2 tiles
+    (3, 32, 32, 8, 128, 16, (48, 0, 16), None),    # 128 rows
+    (2, 33, 32, 8, 128, 16, (20, 5), 2),           # 3 tiles, past the table
+    (1, 64, 32, 8, 128, 16, (100,), None),         # 256 rows, 4 tiles
 ]
 
 
@@ -265,6 +279,81 @@ def test_verify_kernel_with_one_token_is_paged_decode(cuda, dt):
     bt, ln = torch.from_numpy(bt).to(cuda), torch.from_numpy(ln).to(cuda)
     got = ops.paged_verify(q, kp, vp, bt, ln)
     want = ops.paged_decode(q, kp, vp, bt, ln + 1)
+    np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
+                               rtol=1e-2)
+
+
+def _int8_pools(kp, vp, device):
+    """Quantize fp pools (numpy) into int8 pools and bf16 scale pools."""
+    out = []
+    for p in (kp, vp):
+        q, sc = kv_quantize(torch.from_numpy(p))
+        out += [q.to(device), sc.to(device)]
+    return out[0], out[2], out[1], out[3]
+
+
+# (b, h, hkv, d, page, lengths): the paged cases of
+# tests/test_torch_kernels.py at the built width, qwen3-8b's decode step
+# with a length-0 rider, a long row
+GPU_DECODE_INT8 = [
+    (2, 4, 2, 128, 16, (40, 25)),
+    (3, 8, 2, 128, 32, (64, 1, 90)),
+    (1, 4, 1, 128, 16, (47,)),
+    (2, 4, 4, 128, 8, (0, 30)),
+    (4, 32, 8, 128, 16, (28, 1, 40, 0)),
+    (2, 32, 8, 128, 16, (1000, 17)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_DECODE_INT8)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_int8_paged_decode_kernel_matches_plain_on_card(cuda, case, dt):
+    b, h, hkv, d, page, lengths = case
+    q, kp, vp, bt, ln = _verify_inputs(sum(lengths) + h, b, 1, h, hkv, d,
+                                       page, lengths, None)
+    pools = _int8_pools(kp, vp, cuda)
+    q = _t(q, dt, cuda)
+    bt, ln = torch.from_numpy(bt).to(cuda), torch.from_numpy(ln).to(cuda)
+    before = ops.launch_counts()["paged_decode_int8"]
+    got = ops.paged_decode_quant(q, *pools, bt, ln)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_int8"] == before + 1
+    want = paged_decode_quant_ref(q, *pools, bt, ln)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
+                               rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_VERIFY)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_int8_verify_kernel_matches_plain_on_card(cuda, case, dt):
+    b, kq, h, hkv, d, page, lengths, tp = case
+    q, kp, vp, bt, ln = _verify_inputs(sum(lengths) + kq + 1, *case[:7], tp)
+    pools = _int8_pools(kp, vp, cuda)
+    q = _t(q, dt, cuda)
+    bt, ln = torch.from_numpy(bt).to(cuda), torch.from_numpy(ln).to(cuda)
+    before = ops.launch_counts()["paged_verify_int8"]
+    got = ops.paged_verify_quant(q, *pools, bt, ln)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_verify_int8"] == before + 1
+    want = paged_verify_quant_ref(q, *pools, bt, ln)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
+                               rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_int8_verify_with_one_token_is_int8_paged_decode(cuda, dt):
+    q, kp, vp, bt, ln = _verify_inputs(6, 4, 1, 32, 8, 128, 16,
+                                       (28, 1, 40, 0), None)
+    pools = _int8_pools(kp, vp, cuda)
+    q = _t(q, dt, cuda)
+    bt, ln = torch.from_numpy(bt).to(cuda), torch.from_numpy(ln).to(cuda)
+    got = ops.paged_verify_quant(q, *pools, bt, ln)
+    want = ops.paged_decode_quant(q, *pools, bt, ln + 1)
     np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
                                rtol=1e-2)
 
@@ -307,7 +396,19 @@ def test_new_wrappers_reject_what_they_do_not_take(cuda):
     bt = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ops.paged_verify(qv, pool, pool, bt, ln[:1])
+    # any K: 17 tokens x 4 query heads per kv head is two tiles
     qv = torch.zeros((1, 17, 32, 128), device=cuda)
     pool = torch.zeros((2, 16, 8, 128), device=cuda)
-    with pytest.raises(ValueError, match="<= 64"):
-        ops.paged_verify(qv, pool, pool, bt, ln[:1])
+    assert tuple(ops.paged_verify(qv, pool, pool, bt, ln[:1]).shape) == \
+        tuple(qv.shape)
+    # the int8 forms take int8 pools with bf16 (P, page, Hkv, 1) scales
+    qpool = torch.zeros((2, 16, 8, 128), dtype=torch.int8, device=cuda)
+    scale = torch.zeros((2, 16, 8, 1), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        ops.paged_verify_quant(qv, pool, pool, scale, scale, bt, ln[:1])
+    with pytest.raises(TypeError, match="scale"):
+        ops.paged_verify_quant(qv, qpool, qpool, scale.float(), scale, bt,
+                               ln[:1])
+    with pytest.raises(TypeError, match="scale"):
+        ops.paged_decode_quant(qv[:, :1], qpool, qpool, scale[..., 0],
+                               scale, bt, ln[:1])

@@ -108,25 +108,25 @@ def test_executor_load_matches_reference_in_lockstep(setup):
 
 
 def test_unported_modes_name_their_roadmap_item(setup):
-    """What stays unported -- the prefix cache, the KV handoff, int8 KV
-    and the families the reference serves by wave batching -- raises
-    naming its ROADMAP item; slot and speculative engines construct."""
+    """What stays unported -- the KV handoff and the families the
+    reference serves by wave batching -- raises naming its ROADMAP item;
+    slot, speculative, int8 and prefix-cache engines construct, and
+    ``prefix_pin`` without the cache returns 0, as the reference's."""
     _, cfg_t, _, pt = setup
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        Engine(cfg_t, pt, paged=True, prefix_cache=True)
+    Engine(cfg_t, pt, paged=True, prefix_cache=True)
     for paged in (False, True):
-        with pytest.raises(NotImplementedError, match="2q"):
-            Engine(cfg_t.replace(kv_quant=True), pt, paged=paged)
+        Engine(cfg_t.replace(kv_quant=True), pt, paged=paged)
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         Engine(cfg_t.replace(sliding_window=64), pt)
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         Engine(cfg_t.replace(family="moe"), pt)
     for eng in (Engine(cfg_t, pt), Engine(cfg_t, pt, paged=True),
                 Engine(cfg_t, pt, paged=True, spec_draft=(cfg_t, pt))):
-        for call in (eng.extract_handoffs, lambda: eng.accept_handoff(None),
-                     lambda: eng.prefix_pin(None)):
+        for call in (eng.extract_handoffs, lambda: eng.accept_handoff(None)):
             with pytest.raises(NotImplementedError, match="Queue A item 5"):
                 call()
+        assert eng.prefix_pin(GenRequest(
+            rid="p", tokens=np.arange(2, 40, dtype=np.int32))) == 0
 
 
 def test_greedy_masks_padded_vocab_and_takes_first_maximum():

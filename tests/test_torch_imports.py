@@ -76,10 +76,12 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
     cfg = get_config("qwen3-8b").smoke().replace(dtype="float32")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.run(cfg, nodes=1, requests=1)
-    for flags in ([], ["--paged"], ["--spec"]):
+    for flags in ([], ["--paged"], ["--spec"], ["--kv-quant"],
+                  ["--spec", "--kv-quant"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main(flags)
-    for flags in (["--disagg"], ["--kv-quant"], ["--trace", "t.json"]):
+    for flags in (["--disagg"], ["--kv-quant", "--disagg"],
+                  ["--trace", "t.json"]):
         with pytest.raises(SystemExit):     # argparse error, not a silent
             serve.main(["--device", "cpu", *flags])  # switch of backend
 

@@ -137,7 +137,9 @@ def test_ops_cpu_tensors_take_the_plain_versions():
                             torch.from_numpy(ln))
     assert torch.isfinite(outp).all()          # the length-0 row: mean of V
     assert ops.launch_counts() == {"flash_attention": 0, "paged_decode": 0,
-                                   "flash_decode": 0, "paged_verify": 0}
+                                   "flash_decode": 0, "paged_verify": 0,
+                                   "paged_decode_int8": 0,
+                                   "paged_verify_int8": 0}
 
 
 def test_ops_reject_other_devices():

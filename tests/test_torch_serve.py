@@ -5,10 +5,11 @@
 protocol's assignment of requests to nodes, the credit balances, and
 every request's greedy tokens from the replay, on slot engines (the
 driver's default), paged engines and speculative engines with the shared
-``cfg.draft()`` model (the reference replay is ``repro.core.Network.run``
+``cfg.draft()`` model, and on int8 KV pages with the paged and the
+speculative engines (the reference replay is ``repro.core.Network.run``
 plus ``EngineExecutor``s or ``SpecEngineExecutor``s, as
-``repro.launch.serve`` drives them with no flag, ``--paged`` and
-``--spec``).
+``repro.launch.serve`` drives them with no flag, ``--paged``, ``--spec``,
+``--kv-quant`` and ``--spec --kv-quant``).
 """
 
 from typing import Dict, List
@@ -89,12 +90,15 @@ def _reference_run(cfg, mode) -> Dict:
             "slo_attainment": m.slo_attainment()}
 
 
-@pytest.fixture(scope="module", params=["paged", "slot", "spec"])
+@pytest.fixture(scope="module", params=["paged", "slot", "spec",
+                                        "paged-int8", "spec-int8"])
 def runs(request):
     torch.set_num_threads(2)
-    mode = request.param
-    cfg_j = jax_get_config("qwen3-8b").smoke().replace(dtype="float32")
-    cfg_t = get_config("qwen3-8b").smoke().replace(dtype="float32")
+    mode, _, quant = request.param.partition("-")
+    cfg_j = jax_get_config("qwen3-8b").smoke().replace(
+        dtype="float32", kv_quant=bool(quant))
+    cfg_t = get_config("qwen3-8b").smoke().replace(dtype="float32",
+                                                   kv_quant=bool(quant))
 
     def params_fn(i, cfg, device):
         tree = jax.tree_util.tree_map(np.asarray, _jax_params(i, cfg_j))
