@@ -8,7 +8,12 @@ Phases, each of which raises (exit code != 0) when it fails:
 1. print the card's name and power limit (``nvidia-smi``) and build the
    four CUDA sources from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
    each, started together; six kernels: paged decode and paged verify each
-   have an fp-page and an int8-page entry point);
+   have an fp-page and an int8-page entry point); print ``-Xptxas -v``'s
+   registers, shared memory and spills for the prefill and verify bodies,
+   and disassemble their libraries (``cuobjdump -sass``): the bf16
+   prefill kernels (D=64 and 128) must hold HGMMA (wgmma), the bf16
+   verify kernels (fp and int8 pages) HMMA or HGMMA, and their fp32
+   bodies neither;
 2. hold each kernel against its plain PyTorch version on the card at
    qwen3-8b widths (H=32, Hkv=8, D=128, page 16) and, for the prefill and
    contiguous decode kernels, at the speculative draft's (H=2, Hkv=1,
@@ -18,8 +23,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    calls, one ``scaled_dot_product_attention`` on the same (for paged
    kernels: gathered; for int8 pages: gathered and dequantized) inputs with
    a length mask.  The verify kernels also run at K = 32 and 33 (128 and
-   132 query rows per kv head, tiled 64 at a time), and at K = 1 each must
-   equal its paged decode kernel at ``lengths + 1``;
+   132 query rows per kv head, in tiles), and at K = 1 each must equal its
+   paged decode kernel at ``lengths + 1``.  Each bf16 case prints
+   ``vs_library`` (ms / library_ms: below 1, faster than the library call)
+   and ``bound_share`` (bound_ms / ms: the share of the least time the
+   card could take);
 3. model consistency at full width: qwen3-8b, all 36 layers, float32.  A
    paged engine serves two requests, and the logits of every paged decode
    step must match a fresh prefill over the same tokens within 1e-3 *
@@ -66,7 +74,7 @@ replaces, the serve phase it was measured in, its launches there, and its
 error and times at that phase's shapes (phase 5) beside the least time the
 card could take (``bound_ms``: the larger of the bytes it must move over
 3.35 TB/s and the operations it must do over the card's peak for their
-type).  The last line is ``{"ok": true, "device": ...}``.  Without a CUDA
+type), with ``vs_library`` and ``bound_share``.  The last line is ``{"ok": true, "device": ...}``.  Without a CUDA
 card, or outside a checkout of the repository, the script exits with an
 error before printing any result.
 """
@@ -76,6 +84,8 @@ from __future__ import annotations
 import collections
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -207,6 +217,14 @@ def bound(nbytes: float, flops: float, dt: str) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def with_ratios(r: dict) -> dict:
+    """A case's speed against the same run's library call (``vs_library``:
+    ms / library_ms, below 1 is faster) and against the card's bound
+    (``bound_share``: bound_ms / ms, the share of the least time)."""
+    return dict(r, vs_library=r["ms"] / r["library_ms"],
+                bound_share=r["bound_ms"] / r["ms"])
+
+
 def check(name, got, want, dt) -> float:
     import torch
     err = (got.float() - want.float()).abs().max().item()
@@ -217,6 +235,96 @@ def check(name, got, want, dt) -> float:
 
 def _shown(lengths):
     return lengths if len(lengths) <= 8 else f"{len(lengths)}x{lengths[0]}"
+
+
+# ------------------------------------------------------------ phase 1
+# (library, fragments of the kernel's mangled name, instructions one of
+# which it must hold, or None: it must hold neither): the bf16 bodies run on the tensor cores
+# (HGMMA is wgmma, HMMA mma.sync), the fp32 bodies on the CUDA cores
+SASS_RULES = (
+    ("flash_attention", ("flash_wgmma_kernelILi64E",), ("HGMMA",)),
+    ("flash_attention", ("flash_wgmma_kernelILi128E",), ("HGMMA",)),
+    ("flash_attention", ("flash_fwd_kernel",), None),
+    ("paged_verify", ("verify_mma_kernel", "Bf16Pages"), ("HMMA", "HGMMA")),
+    ("paged_verify", ("verify_mma_kernel", "Int8Pages"), ("HMMA", "HGMMA")),
+    ("paged_verify", ("attend_kernel",), None),
+)
+
+
+def _disassembler() -> str:
+    """cuobjdump from the toolkit, else Triton's copy."""
+    found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if pathlib.Path(found).exists():
+        return found
+    try:
+        import triton
+        found = str(pathlib.Path(triton.__file__).parent / "backends" / "nvidia"
+                    / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    if not pathlib.Path(found).exists():
+        raise RuntimeError("no cuobjdump in the toolkit or in triton")
+    return found
+
+
+def sass_check(build_dir) -> dict:
+    """Disassemble the built libraries and hold each kernel of SASS_RULES
+    to its rule; returns, per kernel, its count of HGMMA and HMMA
+    instructions."""
+    tool = _disassembler()
+    found = {}
+    for lib in sorted({lib for lib, _, _ in SASS_RULES}):
+        sass = subprocess.run([tool, "-sass", str(build_dir / f"lib{lib}.so")],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for block in sass.split("Function : ")[1:]:
+            name = block.split(None, 1)[0]
+            found[name] = {op: len(re.findall(rf"\b{op}\b", block))
+                           for op in ("HGMMA", "HMMA")}
+    report = {}
+    for lib, frags, need in SASS_RULES:
+        names = [n for n in found if all(f in n for f in frags)]
+        if not names:
+            raise AssertionError(f"lib{lib}.so holds no kernel {frags}: "
+                                 f"{sorted(found)}")
+        for n in names:
+            counts = found[n]
+            if need is None and any(counts.values()):
+                raise AssertionError(f"{n}: fp32 body on the tensor cores "
+                                     f"{counts}")
+            if need is not None and not any(counts[op] for op in need):
+                raise AssertionError(f"{n}: no {' or '.join(need)} in its "
+                                     f"SASS {counts}")
+            report[n] = counts
+    return report
+
+
+def ptxas_report(logs, fragments) -> dict:
+    """Registers, shared memory and spills that ``-Xptxas -v`` printed for
+    each kernel whose name holds one of ``fragments``."""
+    out, cur = {}, None
+    for text in logs.values():
+        for line in text.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?", line)
+            if m:
+                cur = m.group(1) if any(f in m.group(1) for f in fragments) \
+                    else None
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                out.setdefault(cur, {}).update(
+                    spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", line)
+                out.setdefault(cur, {}).update(
+                    registers=int(m.group(1)),
+                    static_smem=int(smem.group(1)) if smem else 0)
+    return out
 
 
 # ------------------------------------------------------------ phases 2, 5
@@ -478,7 +586,10 @@ def show(name, r) -> None:
         f"max_err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} ms "
         f"(call {r['call_ms']:.4f}) plain {r['plain_ms']:.4f} ms sdpa "
         f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
-        f"({r['bound_by']})  [{r['shape']}]"
+        f"({r['bound_by']})"
+        + (f" vs_library {r['vs_library']:.2f}x bound_share "
+           f"{r['bound_share']:.1%}" if r["dtype"] == "bfloat16" else "")
+        + f"  [{r['shape']}]"
         + "".join(f" {k} by {v}" for k, v in r["timed_by"].items()
                   if v != "profiler"))
 
@@ -520,9 +631,9 @@ def phase_kernels():
         ]
         # a rider whose lengths + K passes its 2-page table
         past = [30, 31, 9, 0]
-        # K = 32 tokens x rep 4 = 128 query rows: tiles of 64 rows, as a
-        # warm prefill of a 17-32 token suffix over 3 cached pages runs it;
-        # K = 33 leaves a ragged third tile
+        # K = 32 tokens x rep 4 = 128 query rows (4 tiles of 32 in bf16, 2
+        # of 64 in fp32), as a warm prefill of a 17-32 token suffix over 3
+        # cached pages runs it; K = 33 leaves a ragged last tile
         warm = [48, 48, 0, 16]
         for entry, quant in (("paged_verify", False),
                              ("paged_verify_int8", True)):
@@ -549,6 +660,8 @@ def phase_kernels():
             log(f"  paged_verify{'_int8' * quant} K=1 {dt}: max_err "
                 f"{err:.2e} against paged decode{' int8' * quant} at "
                 f"lengths + 1")
+    cases = {name: [with_ratios(r) for r in rows]
+             for name, rows in cases.items()}
     for name, rows in cases.items():
         for r in rows:
             show(name, r)
@@ -618,6 +731,7 @@ def phase_main_shapes(seen) -> dict:
         out[entry + "_warm"] = verify_case(
             "warm", _dense_pages(bt), [int(x) for x in ln], kq, "bfloat16",
             iters=100, quant=quant)
+    out = {entry: with_ratios(r) for entry, r in out.items()}
     for entry, r in out.items():
         show(entry, r)
     log("main_cases " + json.dumps(out))
@@ -982,9 +1096,10 @@ def profile_rerun(rerun, first) -> dict:
     if not kern:
         log("  profiler saw no device activity: busy share not measured")
         return dict(busy_share=None, same_tokens=same)
-    by_name = {}
+    by_name, count = {}, collections.Counter()
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        count[e.name] += 1
     busy_ms = sum(by_name.values()) / 1e3
     wall_ms = again["wall_s"] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -993,10 +1108,16 @@ def profile_rerun(rerun, first) -> dict:
         f"{len(kern)} kernel launches")
     for name, us in top:
         log(f"    {us / 1e3:9.2f} ms  {name[:90]}")
+    # the port's own kernels, each with its launches in the replay
+    port = {n[:160]: dict(ms=us / 1e3, launches=count[n])
+            for n, us in by_name.items() if "repro_torch" in n}
+    for name, r in port.items():
+        log(f"    port kernel {r['ms']:9.3f} ms in {r['launches']} launches"
+            f"  {name}")
     return dict(busy_ms=busy_ms, profiled_wall_ms=wall_ms,
                 busy_share=busy_ms / wall_ms, kernel_launches=len(kern),
                 top_kernels_ms={n[:90]: us / 1e3 for n, us in top},
-                same_tokens=same)
+                port_kernels=port, same_tokens=same)
 
 
 def phase_prefix(params):
@@ -1105,10 +1226,16 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     t_all = time.perf_counter()
-    _build.build(force=True)
+    logs = _build.build(force=True)
     build_s = time.perf_counter() - t_all
     log(f"[1] built {list(_build.SOURCES)} in {build_s:.1f}s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
+    for name, r in ptxas_report(logs, ("flash_wgmma_kernel", "verify_mma_kernel",
+                                       "flash_fwd_kernel",
+                                       "attend_kernel")).items():
+        log(f"  ptxas {name}: {r}")
+    for name, counts in sass_check(_build.BUILD_DIR).items():
+        log(f"  sass {name}: {counts}")
     log("[2] kernels vs their plain versions")
     phase_kernels()
     log("[3] model consistency: paged, slot and verify logits vs fresh "
@@ -1150,6 +1277,7 @@ def main() -> int:
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
+            vs_library=r["vs_library"], bound_share=r["bound_share"],
             call_ms=r["call_ms"], timed_by=r["timed_by"], shape=r["shape"],
             dtype=r["dtype"]))
     log(f"total {time.perf_counter() - t_all:.1f}s")

@@ -24,8 +24,10 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 SOURCES = ("flash_attention", "paged_decode", "flash_decode", "paged_verify")
+# -Xptxas -v: each kernel's registers, shared memory and spills, in the
+# compiler output that ``build`` returns
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], Callable[..., int]] = {}

@@ -1,8 +1,9 @@
-// Shared body of the port's decode-shaped attention kernels (contiguous
-// decode, paged decode, paged multi-token verify, and the int8-page forms
-// of the paged two): one block per (kv head, batch row, tile of at most
-// kMaxRows query rows) attends those query rows to the row's KV, which it
-// walks in 64-position chunks with an online softmax in fp32.
+// Shared CUDA-core body of the port's decode-shaped attention kernels
+// (contiguous decode, paged decode, paged multi-token verify with q in
+// fp32, and the int8-page forms of the paged two): one block per (kv
+// head, batch row, tile of at most kMaxRows query rows) attends those
+// query rows to the row's KV, which it walks in 64-position chunks with an
+// online softmax in fp32.
 //
 // What bounds these kernels on the H100: each K/V element is read once and
 // used for 2 * rows operations (rows = K * rep query rows share it: 1 * 4
@@ -35,8 +36,10 @@
 //   the block walks all n positions at -1e30 and returns the mean of V, as
 //   the plain version does; it reads no K then.  With len >= 0 a verify
 //   block always has a visible key, so no block mixes rows with and without.
-// * Splitting a long row across blocks (flash-decoding), tensor cores and
-//   TMA staging are later work.
+// * The bf16 path of paged verify has moved off this body onto the tensor
+//   cores (attend_mma.cuh); its fp32 path, and every path of contiguous
+//   and paged decode, stay here.  Splitting a long row across blocks
+//   (flash-decoding) and tensor cores for the decode rows are later work.
 
 #pragma once
 

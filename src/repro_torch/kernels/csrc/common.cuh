@@ -1,6 +1,9 @@
-// Shared helpers for the port's attention kernels: element conversion and
-// 16-byte vector loads from device memory into float shared memory.
+// Shared helpers for the port's attention kernels: element conversion,
+// 16-byte vector loads from device memory into float shared memory, and the
+// asynchronous-copy and bf16-packing steps of the tensor-core bodies.
 #pragma once
+
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +67,37 @@ cudaError_t allow_smem_once(Kernel kernel, size_t bytes, int device, bool* done)
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e == cudaSuccess) done[device] = true;
   return e;
+}
+
+// ---- bf16 tensor-core staging helpers (sm_80+ instructions, used on sm_90a)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 bytes from device memory to shared memory asynchronously; with
+// `valid` false, write 16 zero bytes instead (src is not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed cp.async groups of this thread are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Two floats rounded to bf16 (nearest even), `lo` in the low half: the
+// order a tensor-core fragment holds neighbouring columns in.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 __device__ __forceinline__ float warp_max(float x) {

@@ -6,8 +6,9 @@ The CUDA kernel replaces the TPU kernel ``src/repro/kernels/spec_verify.py``
 a KV page pool reached through a block table, their KV already written at
 positions ``lengths[b] .. lengths[b]+K-1``, query j attending positions
 ``<= lengths[b] + j``.  Any K: the kernel tiles the K * H / Hkv query rows
-of a kv head 64 at a time.  ``paged_verify_cuda`` takes pools of q's
-dtype; ``paged_verify_int8_cuda`` int8 pools with bf16 scale pools.  Their
+of a kv head, 32 at a time on the tensor cores for q in bfloat16 and 64 at
+a time on the CUDA cores for q in float32.  ``paged_verify_cuda`` takes
+pools of q's dtype; ``paged_verify_int8_cuda`` int8 pools with bf16 scale pools.  Their
 plain versions are ``kernels.ref.paged_verify_ref`` and
 ``paged_verify_quant_ref``; ``kernels.ops.paged_verify`` and
 ``paged_verify_quant`` pick between kernel and plain version by the

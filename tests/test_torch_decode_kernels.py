@@ -242,13 +242,22 @@ GPU_VERIFY = [(b, kq, h, hkv, 128, page, lengths, tp)
               for b, kq, h, hkv, _, page, lengths, tp in VERIFY_CASES] + [
     (4, 5, 32, 8, 128, 16, (28, 1, 40, 0), None),  # qwen3-8b spec verify
     (4, 5, 32, 8, 128, 16, (30, 31, 9, 0), 2),     # riders past the table
-    (2, 2, 32, 1, 128, 16, (700, 3), None),        # 64 rows per block
-    # more than 64 query rows: tiles of 64 (a ragged last one), the
-    # prefix cache's warm prefill of a page-rounded suffix
-    (2, 17, 32, 8, 128, 16, (40, 3), None),        # 68 rows, 2 tiles
+    (2, 2, 32, 1, 128, 16, (700, 3), None),        # 64 rows per kv head
+    # more than 64 query rows: several tiles (a ragged last one; bf16
+    # tiles 32 rows, fp32 64), the prefix cache's warm prefill of a
+    # page-rounded suffix
+    (2, 17, 32, 8, 128, 16, (40, 3), None),        # 68 rows
     (3, 32, 32, 8, 128, 16, (48, 0, 16), None),    # 128 rows
-    (2, 33, 32, 8, 128, 16, (20, 5), 2),           # 3 tiles, past the table
+    (2, 33, 32, 8, 128, 16, (20, 5), 2),           # 132 rows, past the table
     (1, 64, 32, 8, 128, 16, (100,), None),         # 256 rows, 4 tiles
+    # K * rep = 4, 20, 64, 128 and 132 rows on the bf16 body's 32-row
+    # tiles, with lengths that end inside a page (page 16) and whose last
+    # query's bound crosses the 64-position chunk boundary
+    (2, 1, 32, 8, 128, 16, (33, 63), None),        # 4 rows, 63 + 1 = 64
+    (3, 5, 32, 8, 128, 16, (59, 60, 11), None),    # 20 rows, bounds 63 / 64
+    (2, 16, 32, 8, 128, 16, (48, 17), None),       # 64 rows, 48 + 16 = 64
+    (2, 32, 32, 8, 128, 16, (32, 7), None),        # 128 rows, 32 + 32 = 64
+    (2, 33, 32, 8, 128, 16, (31, 64), None),       # 132 rows, 31 + 33 = 64
 ]
 
 
@@ -360,7 +369,9 @@ def test_int8_verify_with_one_token_is_int8_paged_decode(cuda, dt):
 
 # the draft's prefill: H=2, Hkv=1, D=64, and the CPU prefill cases' masks
 GPU_PREFILL_64 = [(4, 32, 2, 1, None, True), (1, 1000, 2, 1, None, True),
-                  (2, 100, 8, 2, 64, True), (2, 77, 4, 4, None, False)]
+                  (2, 100, 8, 2, 64, True), (2, 77, 4, 4, None, False),
+                  (1, 4096, 2, 1, None, True),    # the draft's long prefill
+                  (3, 70, 8, 1, 40, True)]        # rep 8: 560 rows, window
 
 
 @pytest.mark.gpu

@@ -160,13 +160,22 @@ def cuda():
 
 # the card cases take the CPU cases' head ratios, lengths and masks at head
 # width 128 (qwen3-8b's; the prefill kernel's width 64, the draft's, is
-# held in tests/test_torch_decode_kernels.py)
-GPU_PREFILL = [(b, s, h, hkv, 128, win, causal)
+# held in tests/test_torch_decode_kernels.py); (b, sq, h, hkv, d, window,
+# causal, skv), skv None meaning sq.  The bf16 kernel tiles 128 query rows
+# (sq * h / hkv of them a kv head) and 64 keys: ragged row and key tails,
+# sq != skv, and windows whose edge crosses tiles near the diagonal
+GPU_PREFILL = [(b, s, h, hkv, 128, win, causal, None)
                for b, s, h, hkv, _, win, causal, _, _ in PREFILL_CASES] + [
-    (4, 32, 32, 8, 128, None, True),           # qwen3-8b serve prefill
-    (1, 1000, 32, 8, 128, None, True),
-    (2, 100, 32, 8, 128, 64, True),
-    (2, 77, 32, 8, 128, None, False),
+    (4, 32, 32, 8, 128, None, True, None),     # qwen3-8b serve prefill
+    (1, 1000, 32, 8, 128, None, True, None),
+    (2, 100, 32, 8, 128, 64, True, None),
+    (2, 77, 32, 8, 128, None, False, None),
+    (1, 200, 32, 8, 128, None, True, None),    # 800 rows: 6 tiles + 32
+    (2, 77, 32, 8, 128, None, True, 300),      # sq < skv
+    (1, 300, 32, 8, 128, None, True, 130),     # sq > skv, no window
+    (1, 333, 32, 8, 128, 100, True, None),     # window edge inside tiles
+    (1, 150, 8, 8, 128, 40, False, None),      # bidirectional window, rep 1
+    (2, 129, 16, 2, 128, 33, True, 200),       # rep 8, window, sq < skv
 ]
 
 
@@ -174,9 +183,9 @@ GPU_PREFILL = [(b, s, h, hkv, 128, win, causal)
 @pytest.mark.parametrize("case", GPU_PREFILL)
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain_on_card(cuda, case, dt):
-    b, s, h, hkv, d, win, causal = case
-    q, k, v = (_t(x, dt, cuda) for x in _qkv(sum(case[:5]), b, s, s, h,
-                                              hkv, d))
+    b, s, h, hkv, d, win, causal, skv = case
+    q, k, v = (_t(x, dt, cuda) for x in _qkv(sum(case[:5]), b, s, skv or s,
+                                              h, hkv, d))
     before = ops.launch_counts()["flash_attention"]
     got = ops.attention(q, k, v, causal=causal, window=win)
     torch.cuda.synchronize()
