@@ -9,11 +9,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    four CUDA sources from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
    each, started together; six kernels: paged decode and paged verify each
    have an fp-page and an int8-page entry point); print ``-Xptxas -v``'s
-   registers, shared memory and spills for the prefill and verify bodies,
-   and disassemble their libraries (``cuobjdump -sass``): the bf16
+   registers, shared memory and spills for the prefill, decode and verify
+   bodies, and disassemble their libraries (``cuobjdump -sass``): the bf16
    prefill kernels (D=64 and 128) must hold HGMMA (wgmma), the bf16
-   verify kernels (fp and int8 pages) HMMA or HGMMA, and their fp32
-   bodies neither;
+   verify kernels (fp and int8 pages) and the bf16 decode kernels (paged
+   at D=128, contiguous at D=64 and 128) HMMA or HGMMA, and the CUDA-core
+   bodies (fp32, int8-page decode) neither;
 2. hold each kernel against its plain PyTorch version on the card at
    qwen3-8b widths (H=32, Hkv=8, D=128, page 16) and, for the prefill and
    contiguous decode kernels, at the speculative draft's (H=2, Hkv=1,
@@ -22,9 +23,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    time the kernel, the plain version and, as a yardstick the port never
    calls, one ``scaled_dot_product_attention`` on the same (for paged
    kernels: gathered; for int8 pages: gathered and dequantized) inputs with
-   a length mask.  The verify kernels also run at K = 32 and 33 (128 and
-   132 query rows per kv head, in tiles), and at K = 1 each must equal its
-   paged decode kernel at ``lengths + 1``.  Each bf16 case prints
+   a length mask.  The decode kernels also run on a few long rows (B=2 x
+   4096) and on ragged rows with a dead one, which in bf16 cut each row
+   across blocks (``splits`` > 1, printed with every decode case); a
+   split case is also held to 2e-2 of each (row, head)'s largest |plain|
+   value.  bf16 decode cases under 100 MB are timed again with the L2
+   emptied before each call (``cold_ms``).  The verify kernels also run
+   at K = 32 and 33 (128 and 132 query rows per kv head, in tiles), and
+   at K = 1 each must equal its paged decode kernel at ``lengths + 1``.
+   Each bf16 case prints
    ``vs_library`` (ms / library_ms: below 1, faster than the library call)
    and ``bound_share`` (bound_ms / ms: the share of the least time the
    card could take);
@@ -97,6 +104,11 @@ HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core rate
               "float32": 67e12}           # fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the 50 MB L2 holds a case of fewer bytes across back-to-back calls: the
+# bf16 decode cases under twice that are also timed with the L2 emptied
+# before each call by a read of FLUSH_BYTES (cold_ms, cold_bound_share)
+L2_BYTES = 50e6                           # H100 SXM, NVIDIA data sheet
+FLUSH_BYTES = 256 * 2**20
 H, HKV, D, PAGE = 32, 8, 128, 16          # qwen3-8b attention widths
 TARGET, DRAFT = (H, HKV, D), (2, 1, 64)   # (H, Hkv, D); the draft: cfg.draft()
 SPEC_K = 4
@@ -201,6 +213,63 @@ def device_ms(fn, iters: int, attempts: int = 3) -> tuple[float, str]:
     return queued_ms(fn, iters), "cuda_events"
 
 
+def cold_ms(fn, iters: int, attempts: int = 3) -> tuple[float, str]:
+    """Mean device milliseconds per call of ``fn`` with a cold L2: each
+    call follows a read of ``FLUSH_BYTES`` (a sum), which leaves the L2
+    holding only clean lines of that buffer (a write would leave dirty
+    ones, whose write-back the timed call would pay for), and the device
+    time summed is that of every kernel but the read's (named by a
+    profiled run of reads alone).  After ``attempts`` empty profiler
+    sessions the calls are timed one by one by CUDA events, queued behind
+    a spinning kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def device_events(run):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                run()
+            torch.cuda.synchronize()
+        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+
+    def flushed():
+        flush.sum()
+        fn()
+
+    flushed()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        own = {name for name, _ in device_events(flush.sum)}
+        us = sum(t for name, t in device_events(flushed)
+                 if name not in own) if own else 0
+        if us > 0:
+            return us / iters / 1e3, "profiler"
+    log(f"  the profiler recorded no device activity in {attempts} sessions:"
+        f" cold calls timed by CUDA events one by one instead")
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(200_000_000)        # clock cycles
+    for start, stop in marks:
+        flush.sum()
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / iters, "cuda_events"
+
+
+def with_cold(r: dict, fn, iters: int) -> dict:
+    """A bf16 case the L2 could hold (``bytes`` under twice its size) gains
+    its cold-L2 time, ``cold_ms``, and how that was timed."""
+    if r["dtype"] != "bfloat16" or r["bytes"] >= 2 * L2_BYTES:
+        return r
+    ms, how = cold_ms(fn, iters)
+    return dict(r, cold_ms=ms, timed_by=dict(r["timed_by"], cold_ms=how))
+
+
 def timings(kernel, plain, library, iters: int) -> dict:
     slow = max(3, iters // 5)             # the plain version is slow
     out, timed_by = {}, {}
@@ -220,9 +289,12 @@ def bound(nbytes: float, flops: float, dt: str) -> dict:
 def with_ratios(r: dict) -> dict:
     """A case's speed against the same run's library call (``vs_library``:
     ms / library_ms, below 1 is faster) and against the card's bound
-    (``bound_share``: bound_ms / ms, the share of the least time)."""
+    (``bound_share``: bound_ms / ms, the share of the least time; with a
+    cold-L2 time, ``cold_bound_share`` too)."""
+    cold = ({"cold_bound_share": r["bound_ms"] / r["cold_ms"]}
+            if "cold_ms" in r else {})
     return dict(r, vs_library=r["ms"] / r["library_ms"],
-                bound_share=r["bound_ms"] / r["ms"])
+                bound_share=r["bound_ms"] / r["ms"], **cold)
 
 
 def check(name, got, want, dt) -> float:
@@ -231,6 +303,21 @@ def check(name, got, want, dt) -> float:
     if not (torch.isfinite(got.float()).all() and err <= TOL[dt]):
         raise AssertionError(f"{name} {dt}: max_err {err} > {TOL[dt]}")
     return err
+
+
+def check_splits(name, got, want, splits) -> dict:
+    """A case the bf16 decode kernel cut into ``splits`` > 1 is held,
+    besides ``check``, to ``SPLIT_REL`` of each (row, head)'s largest
+    |plain| value (``head_scaled_err``), which a fault in the merge of the
+    splits exceeds where the absolute tolerance may not."""
+    if splits < 2:
+        return {}
+    from repro_torch.kernels.decode_split import SPLIT_REL, head_scaled_err
+    rel = head_scaled_err(got, want)
+    if rel > SPLIT_REL:
+        raise AssertionError(f"{name} ({splits} splits): head-scaled err "
+                             f"{rel} > {SPLIT_REL}")
+    return dict(head_scaled_err=rel, head_scaled_tol=SPLIT_REL)
 
 
 def _shown(lengths):
@@ -248,6 +335,11 @@ SASS_RULES = (
     ("paged_verify", ("verify_mma_kernel", "Bf16Pages"), ("HMMA", "HGMMA")),
     ("paged_verify", ("verify_mma_kernel", "Int8Pages"), ("HMMA", "HGMMA")),
     ("paged_verify", ("attend_kernel",), None),
+    ("paged_decode", ("decode_mma_kernelILi128E", "PagedKv"), ("HMMA", "HGMMA")),
+    ("paged_decode", ("attend_kernel",), None),
+    ("flash_decode", ("decode_mma_kernelILi64E", "ContiguousKv"), ("HMMA", "HGMMA")),
+    ("flash_decode", ("decode_mma_kernelILi128E", "ContiguousKv"), ("HMMA", "HGMMA")),
+    ("flash_decode", ("attend_kernel",), None),
 )
 
 
@@ -387,16 +479,20 @@ def decode_case(name, s, lengths, dt, *, heads=TARGET, window=None,
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     got = flash_decode_cuda(q, kc, vc, ln, window=window)
     torch.cuda.synchronize()
-    err = check(f"decode {name}", got,
-                decode_ref(q, kc, vc, ln, window=window), dt)
+    splits = flash_decode_cuda.last_splits
+    want = decode_ref(q, kc, vc, ln, window=window)
+    err = check(f"decode {name}", got, want, dt)
+    scaled = check_splits(f"decode {name}", got, want, splits)
     pos = torch.arange(s, device="cuda")[None, :]
     valid = pos < ln[:, None]
     if window is not None:
         valid &= pos >= ln[:, None] - window
     mask = valid[:, None, None, :]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
-    t = timings(lambda: flash_decode_cuda(q, kc, vc, ln, window=window),
-                lambda: decode_ref(q, kc, vc, ln, window=window),
+    def run():
+        return flash_decode_cuda(q, kc, vc, ln, window=window)
+
+    t = timings(run, lambda: decode_ref(q, kc, vc, ln, window=window),
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
     # what the function needs: a row's K and V over its visible positions
@@ -411,18 +507,19 @@ def decode_case(name, s, lengths, dt, *, heads=TARGET, window=None,
     elem = q.element_size()
     nbytes = (2 * q.numel() + (k_pos + v_pos) * hkv * d) * elem + 4 * b
     flops = 2.0 * h * d * (k_pos + v_pos)
-    return dict(case=name, dtype=dt, shape=f"B={b} S={s} "
-                f"lengths={_shown(lengths)} H={h} Hkv={hkv} D={d}"
-                + (f" window={window}" if window else ""),
-                max_abs_err=err, tol=TOL[dt], **t, **bound(nbytes, flops, dt))
+    return with_cold(dict(
+        case=name, dtype=dt, shape=f"B={b} S={s} lengths={_shown(lengths)} "
+        f"H={h} Hkv={hkv} D={d}" + (f" window={window}" if window else ""),
+        splits=splits, max_abs_err=err, tol=TOL[dt], **scaled, **t,
+        **bound(nbytes, flops, dt)), run, iters)
 
 
-def fresh_tables(lengths, width=None):
-    """A block table with distinct pages per row covering ``lengths``
-    positions (cut at ``width`` columns if given); entries past a row's
-    allocation point at the scratch page 0."""
+def fresh_tables(lengths, width=None, page=PAGE):
+    """A block table with distinct pages of ``page`` positions per row
+    covering ``lengths`` positions (cut at ``width`` columns if given);
+    entries past a row's allocation point at the scratch page 0."""
     import numpy as np
-    n_row = [-(-ln // PAGE) for ln in lengths]
+    n_row = [-(-ln // page) for ln in lengths]
     if width is not None:
         n_row = [min(n, width) for n in n_row]
     bt = np.zeros((len(lengths), width or max(2, max(n_row) + 1)), np.int32)
@@ -433,7 +530,7 @@ def fresh_tables(lengths, width=None):
     return bt
 
 
-def _pool(bt, lengths, kq, dt, seed, quant=False):
+def _pool(bt, lengths, kq, dt, seed, quant=False, page=PAGE):
     """q (B, kq, H, D), random pools holding every page ``bt`` names --
     (k, v) of q's dtype, or with ``quant`` (k, v, k_scale, v_scale): the
     same random values quantized to int8 pages and bf16 scales on the card
@@ -445,7 +542,7 @@ def _pool(bt, lengths, kq, dt, seed, quant=False):
     n_pool = int(bt.max()) + 1
     q = torch.randn((bt.shape[0], kq, H, D), generator=g,
                     device="cuda").to(dtype)
-    kp, vp = (torch.randn((n_pool, PAGE, HKV, D), generator=g,
+    kp, vp = (torch.randn((n_pool, page, HKV, D), generator=g,
                           device="cuda").to(dtype) for _ in range(2))
     pools = (kp, vp)
     if quant:
@@ -486,44 +583,50 @@ def _kv_bytes(positions, quant, elem):
     return positions * HKV * (D * 1 + 2 if quant else D * elem)
 
 
-def paged_case(name, bt, lengths, dt, *, iters=100, quant=False):
+def paged_case(name, bt, lengths, dt, *, iters=100, quant=False, page=PAGE):
     """The paged decode kernel (``quant``: its int8 form) on block table
-    ``bt`` (numpy int32 (B, maxp)) and ``lengths``, over a random pool
-    holding every page the table names."""
+    ``bt`` (numpy int32 (B, maxp)) and ``lengths``, over a random pool of
+    ``page``-position pages holding every page the table names."""
     import torch.nn.functional as F
     import torch
     kernel, plain = _paged_fns(False, quant)
     b, maxp = bt.shape
-    q, pools, btc, ln = _pool(bt, lengths, 1, dt, sum(lengths) + b, quant)
+    q, pools, btc, ln = _pool(bt, lengths, 1, dt, sum(lengths) + b, quant,
+                              page)
     got = kernel(q, *pools, btc, ln)
     torch.cuda.synchronize()
-    err = check(f"paged{' int8' * quant} {name}", got,
-                plain(q, *pools, btc, ln), dt)
+    # the int8 form runs the CUDA-core body, which never splits a row
+    splits = 1 if quant else kernel.last_splits
+    want = plain(q, *pools, btc, ln)
+    err = check(f"paged{' int8' * quant} {name}", got, want, dt)
+    scaled = check_splits(f"paged {name}", got, want, splits)
     kg, vg = _gathered(pools, btc, q.dtype)
-    mask = (torch.arange(maxp * PAGE, device="cuda")[None, :]
+    mask = (torch.arange(maxp * page, device="cuda")[None, :]
             < ln[:, None])[:, None, None, :]
     qt = q.transpose(1, 2).contiguous()
-    t = timings(lambda: kernel(q, *pools, btc, ln),
-                lambda: plain(q, *pools, btc, ln),
+    def run():
+        return kernel(q, *pools, btc, ln)
+
+    t = timings(run, lambda: plain(q, *pools, btc, ln),
                 lambda: F.scaled_dot_product_attention(
                     qt, kg, vg, attn_mask=mask, enable_gqa=True), iters)
     # what the function needs: a live row's K and V up to its length and
     # QK + PV on them; a length-0 row averages V over its whole table and
     # needs no K and no QK; each row's table entries for those positions
-    cap = maxp * PAGE
+    cap = maxp * page
     k_pos = sum(min(n, cap) for n in lengths if n > 0)
     v_pos = k_pos + cap * sum(1 for n in lengths if n <= 0)
-    entries = sum(-(-(min(n, cap) if n > 0 else cap) // PAGE)
+    entries = sum(-(-(min(n, cap) if n > 0 else cap) // page)
                   for n in lengths)
     elem = q.element_size()
     nbytes = (2 * q.numel() * elem + _kv_bytes(k_pos + v_pos, quant, elem)
               + 4 * (entries + b))
     flops = 2.0 * H * D * (k_pos + v_pos)
-    return dict(case=name, dtype=dt, shape=f"B={b} maxp={maxp} "
-                f"lengths={_shown(lengths)} H={H} Hkv={HKV} D={D} "
-                f"page={PAGE}" + (" int8 pages" if quant else ""),
-                max_abs_err=err, tol=TOL[dt], **t,
-                **bound(nbytes, flops, dt))
+    return with_cold(dict(
+        case=name, dtype=dt, shape=f"B={b} maxp={maxp} "
+        f"lengths={_shown(lengths)} H={H} Hkv={HKV} D={D} page={page}"
+        + (" int8 pages" if quant else ""), splits=splits, max_abs_err=err,
+        tol=TOL[dt], **scaled, **t, **bound(nbytes, flops, dt)), run, iters)
 
 
 def verify_case(name, bt, lengths, kq, dt, *, iters=100, quant=False):
@@ -589,6 +692,11 @@ def show(name, r) -> None:
         f"({r['bound_by']})"
         + (f" vs_library {r['vs_library']:.2f}x bound_share "
            f"{r['bound_share']:.1%}" if r["dtype"] == "bfloat16" else "")
+        + (f" splits {r['splits']}" if "splits" in r else "")
+        + (f" head_scaled_err {r['head_scaled_err']:.2e}"
+           if "head_scaled_err" in r else "")
+        + (f" cold {r['cold_ms']:.4f} ms cold_bound_share "
+           f"{r['cold_bound_share']:.1%}" if "cold_ms" in r else "")
         + f"  [{r['shape']}]"
         + "".join(f" {k} by {v}" for k, v in r["timed_by"].items()
                   if v != "profiler"))
@@ -612,22 +720,35 @@ def phase_kernels():
             prefill_case("long", 1, 4096, dt, heads=DRAFT, iters=10),
         ]
         rider = [0, 17, 40, 33]           # a length-0 row and page-0 pads
+        # a few long rows and ragged ones with a dead row, too few to fill
+        # the card: bf16 cuts each across blocks.  The ragged case's
+        # 256-position pages put split boundaries (whole 64-position
+        # chunks) inside pages
+        ragged = [4096, 1500, 0]
         cases["paged_decode"] += [
             paged_case("rider", fresh_tables(rider), rider, dt, iters=200),
             paged_case("long", fresh_tables([4096] * 32), [4096] * 32, dt,
                        iters=20),
+            paged_case("few long", fresh_tables([4096] * 2), [4096] * 2, dt,
+                       iters=100),
+            paged_case("ragged", fresh_tables(ragged, page=256), ragged, dt,
+                       iters=100, page=256),
         ]
         cases["flash_decode"] += [
             decode_case("rider", 64, [25, 1, 33, 0], dt, iters=200),
             decode_case("long", 4096, [4096] * 32, dt, iters=20),
             decode_case("window", 4096, [4096, 3000, 100, 0] * 2, dt,
                         window=1024, iters=20),
+            decode_case("few long", 4096, [4096] * 2, dt, iters=100),
+            decode_case("ragged", 4096, ragged, dt, iters=100),
         ]
         cases["flash_decode_d64"] += [
             decode_case("rider", 72, [25, 1, 33, 0], dt, heads=DRAFT,
                         iters=200),
             decode_case("long", 4096, [4096] * 32, dt, heads=DRAFT,
                         iters=20),
+            decode_case("few long", 4096, [4096] * 2, dt, heads=DRAFT,
+                        iters=100),
         ]
         # a rider whose lengths + K passes its 2-page table
         past = [30, 31, 9, 0]
@@ -665,6 +786,13 @@ def phase_kernels():
     for name, rows in cases.items():
         for r in rows:
             show(name, r)
+    # too few rows to fill the card: the bf16 decode kernels split them
+    for name in ("paged_decode", "flash_decode", "flash_decode_d64"):
+        for r in cases[name]:
+            if (r["case"] in ("few long", "ragged", "window")
+                    and r["dtype"] == "bfloat16" and r["splits"] < 2):
+                raise AssertionError(f"{name} {r['case']}: ran with "
+                                     f"{r['splits']} split")
     log("kernel_cases " + json.dumps(cases))
     return cases
 
@@ -1231,6 +1359,8 @@ def main() -> int:
     log(f"[1] built {list(_build.SOURCES)} in {build_s:.1f}s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     for name, r in ptxas_report(logs, ("flash_wgmma_kernel", "verify_mma_kernel",
+                                       "decode_mma_kernel",
+                                       "decode_combine_kernel",
                                        "flash_fwd_kernel",
                                        "attend_kernel")).items():
         log(f"  ptxas {name}: {r}")

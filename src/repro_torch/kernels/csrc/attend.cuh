@@ -1,19 +1,26 @@
 // Shared CUDA-core body of the port's decode-shaped attention kernels
-// (contiguous decode, paged decode, paged multi-token verify with q in
-// fp32, and the int8-page forms of the paged two): one block per (kv
-// head, batch row, tile of at most kMaxRows query rows) attends those
-// query rows to the row's KV, which it walks in 64-position chunks with an
-// online softmax in fp32.
+// where the tensor cores would miss the tolerance or are not yet used: q
+// in fp32 for contiguous decode, paged decode and paged multi-token verify
+// (fp32 FMAs hold the 1e-4 fp32 tolerance that bf16 or TF32 tensor-core
+// inputs would not), and paged decode over int8 pages in both q types (row
+// 2q, next to move onto the tensor cores).  The bf16 paths run elsewhere:
+// decode over bf16 caches and pools on decode_mma.cuh, verify on
+// attend_mma.cuh.  One block per (kv head, batch row, tile of at most
+// kMaxRows query rows) attends those query rows to the row's KV, which it
+// walks in 64-position chunks with an online softmax in fp32.
 //
 // What bounds these kernels on the H100: each K/V element is read once and
 // used for 2 * rows operations (rows = K * rep query rows share it: 1 * 4
-// for qwen3-8b decode, 5 * 4 for its verify), a few operations per byte
-// against the ~295 the card needs in bf16, so the bytes of the KV they read
-// bound them (3.35 TB/s).  The design reads each element once per tile:
-// the rows of a kv head's group share every staged chunk, so K/V are never
-// re-read per query head or per verify token (a verify of more than
-// kMaxRows rows reads them once per tile), and a tile walks only the
-// positions one of its queries can see, not the whole cache or table.
+// for qwen3-8b decode, 5 * 4 for its verify), a few operations per byte,
+// so the bytes of the KV they read bound them (3.35 TB/s).  The design
+// reads each element once per tile: the rows of a kv head's group share
+// every staged chunk, so K/V are never re-read per query head or per
+// verify token (a verify of more than kMaxRows rows reads them once per
+// tile), and a tile walks only the positions one of its queries can see.
+// It stages fp32 with synchronous loads behind four barriers a chunk and
+// never splits a row across blocks, so it reaches only 15-25% of that
+// bound on long rows (PERF.md, the kernel table); the tensor-core bodies
+// replace it where the dtype allows.
 //
 // Where K/V come from (the Src policy): FpKv reads K/V of the q type with
 // 16-byte loads; Int8Kv reads int8 K/V, 16 values per 16-byte load, and
@@ -36,10 +43,6 @@
 //   the block walks all n positions at -1e30 and returns the mean of V, as
 //   the plain version does; it reads no K then.  With len >= 0 a verify
 //   block always has a visible key, so no block mixes rows with and without.
-// * The bf16 path of paged verify has moved off this body onto the tensor
-//   cores (attend_mma.cuh); its fp32 path, and every path of contiguous
-//   and paged decode, stay here.  Splitting a long row across blocks
-//   (flash-decoding) and tensor cores for the decode rows are later work.
 
 #pragma once
 

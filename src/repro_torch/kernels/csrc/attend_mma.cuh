@@ -85,6 +85,32 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Stage one 64-position chunk [c0, c0 + 64) of bf16 K/V (a cache or a
+// pool, through `kv`): each thread copies its 16-byte pieces of the
+// positions in [a, e) into the stage with cp.async (K only when read_k),
+// zeros elsewhere.  kFromA false takes a as 0 and compares nothing with
+// it: verify walks from position 0, decode from a window's edge or a
+// split's.
+template <int D, bool kFromA, class Kv>
+__device__ __forceinline__ void fetch_bf16(const __nv_bfloat16* __restrict__ k,
+                                           const __nv_bfloat16* __restrict__ v,
+                                           __nv_bfloat16* sK, __nv_bfloat16* sV, const Kv& kv,
+                                           int b, int g, int Hkv, int c0, int a, int e,
+                                           bool read_k) {
+  constexpr int kPieces = D / 8;                         // per position
+  const int c = threadIdx.x % kPieces;
+  const uint32_t dk = smem_u32(sK), dv = smem_u32(sV);
+#pragma unroll
+  for (int x = 0; x < kChunk * kPieces / kBlock; ++x) {
+    const int r = threadIdx.x / kPieces + x * (kBlock / kPieces);
+    const int pos = c0 + r;
+    const bool ok = (!kFromA || pos >= a) && pos < e;
+    const size_t off = ok ? (kv.slot(b, pos) * Hkv + g) * D + c * 8 : 0;
+    cp_async16(dk + swz<D>(r, c) * 16, k + off, ok && read_k);
+    cp_async16(dv + swz<D>(r, c) * 16, v + off, ok);
+  }
+}
+
 // bf16 pools: each thread copies its 16-byte pieces of the chunk from the
 // pages into the stage with cp.async (zeros outside [0, hi)).
 struct Bf16Pages {
@@ -95,18 +121,7 @@ struct Bf16Pages {
   __device__ __forceinline__ void fetch(Regs&, __nv_bfloat16* sK, __nv_bfloat16* sV,
                                         const PagedKv& kv, int b, int g, int Hkv, int c0,
                                         int hi) const {
-    constexpr int kPieces = D / 8;                       // per position
-    const int c = threadIdx.x % kPieces;
-    const uint32_t dk = smem_u32(sK), dv = smem_u32(sV);
-#pragma unroll
-    for (int x = 0; x < kChunk * kPieces / kBlock; ++x) {
-      const int r = threadIdx.x / kPieces + x * (kBlock / kPieces);
-      const int pos = c0 + r;
-      const bool ok = pos < hi;
-      const size_t off = ok ? (kv.slot(b, pos) * Hkv + g) * D + c * 8 : 0;
-      cp_async16(dk + swz<D>(r, c) * 16, k + off, ok);
-      cp_async16(dv + swz<D>(r, c) * 16, v + off, ok);
-    }
+    fetch_bf16<D, false>(k, v, sK, sV, kv, b, g, Hkv, c0, 0, hi, true);
   }
   template <int D>
   __device__ __forceinline__ void stage(const Regs&, __nv_bfloat16*, __nv_bfloat16*) const {}

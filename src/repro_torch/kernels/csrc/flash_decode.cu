@@ -10,36 +10,41 @@
 // What bounds it on this card: each K/V element is read once and used for
 // 2 * rep operations (rep = H / Hkv query heads share it), a few operations
 // per byte against the ~295 the H100 needs in bf16, so the bytes of the
-// cache it reads bound it (3.35 TB/s).
+// cache it reads bound it (3.35 TB/s).  At the serve shapes (4 rows of ~30
+// positions) the latency of a one-chunk walk bounds it, and with a few
+// long rows, the number of blocks in flight.
 //
-// Design (the shared body in attend.cuh, with K = 1 query per row): one
-// block per (kv head, batch row) walks the row's valid positions in
-// 64-position chunks staged in shared memory with 16-byte loads (the TPU's
-// sequential kv grid axis becomes that loop); the rep query heads of the kv
-// head share each chunk, so the cache is read once, and positions past the
-// row's length or below its window are never read.  A row of length 0, or
-// whose window lies past the cache, averages V over all S positions, as the
-// plain version does.  Built for head widths 64 (the speculative draft)
-// and 128 (qwen3-8b) in fp32 and bf16, up to 16 query heads per kv head.
+// Design.  q in bf16 (the serve dtype) runs the tensor-core body of
+// decode_mma.cuh: blocks of 4 warps per (kv head, batch row, split), the
+// rep query heads one 16-row MMA slice, 64-position chunks staged as bf16
+// by a 3-stage cp.async ring (the TPU's sequential kv grid axis becomes
+// that loop), the online softmax in registers; when B * Hkv blocks cannot
+// fill the card, the S positions are cut into splits (chosen on the host
+// from B, Hkv and S) merged by a second, small kernel.  q in fp32 stays on
+// attend.cuh's CUDA-core body (one block per (kv head, batch row), fp32
+// FMAs): TF32 or bf16 tensor-core inputs would not hold the fp32 tolerance
+// of 1e-4.  Either way the rep query heads of a kv head share each staged
+// chunk, so the cache is read once, and positions past the row's length
+// or below its window are never read.  A row of length 0, or whose window
+// lies past the cache, averages V over all S positions, as the plain
+// version does.  Built for head widths 64 (the speculative draft) and 128
+// (qwen3-8b) in fp32 and bf16, up to 16 query heads per kv head.
 
-#include "attend.cuh"
+#include "decode_mma.cuh"
 
 namespace repro_torch {
 namespace {
 
 constexpr int kMaxRep = 16;    // query heads per kv head this kernel takes
 
-template <typename T>
-int launch_width(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                 int B, int S, int H, int Hkv, int D, int window, float scale, int device,
-                 cudaStream_t st) {
-  const ContiguousKv kv{S};
-  const FpKv<T> src{static_cast<const T*>(k), static_cast<const T*>(v)};
-  if (D == 64)
-    return launch_attend<T, 64, kMaxRep>(q, src, lengths, out, B, H, Hkv, 1, 0, window, scale,
-                                         kv, device, st);
-  return launch_attend<T, 128, kMaxRep>(q, src, lengths, out, B, H, Hkv, 1, 0, window, scale,
-                                        kv, device, st);
+// q in fp32 on the CUDA-core body
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, const int* lengths, void* out,
+                int B, int S, int H, int Hkv, int window, float scale, int device,
+                cudaStream_t st) {
+  const FpKv<float> src{static_cast<const float*>(k), static_cast<const float*>(v)};
+  return launch_attend<float, D, kMaxRep>(q, src, lengths, out, B, H, Hkv, 1, 0, window, scale,
+                                          ContiguousKv{S}, device, st);
 }
 
 }  // namespace
@@ -47,22 +52,33 @@ int launch_width(const void* q, const void* k, const void* v, const int* lengths
 
 // dtype: 0 = float32, 1 = bfloat16.  D must be 64 or 128.  q (B, 1, H, D),
 // caches (B, S, Hkv, D), lengths (B,) int32; window <= 0 means no window.
-// Returns the CUDA error of the launch (0 on success).
+// splits: blocks the S positions of a row are cut across (bf16 only; fp32
+// takes 1), split z walking positions [z * span, (z + 1) * span), so
+// splits * span must reach S; with more than one, workspace holds B * H *
+// splits * (D + 2) floats (uninitialised: every split writes its
+// partial).  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
-                                const void* lengths, void* out, int dtype, int B, int S, int H,
-                                int Hkv, int D, int window, float scale, int device,
-                                void* stream) {
+                                const void* lengths, void* out, void* workspace, int dtype,
+                                int B, int S, int H, int Hkv, int D, int window, int splits,
+                                int span, float scale, int device, void* stream) {
   using namespace repro_torch;
-  if ((D != 64 && D != 128) || H % Hkv != 0 || H / Hkv > kMaxRep || S < 1)
+  if ((D != 64 && D != 128) || B < 1 || Hkv < 1 || H % Hkv != 0 || H / Hkv > kMaxRep ||
+      S < 1 || splits < 1 || splits > 65535 || span < 1 || (long long)splits * span < S ||
+      (splits > 1 && (dtype != 1 || workspace == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lengths);
   if (dtype == 0)
-    return launch_width<float>(q, k, v, ln, out, B, S, H, Hkv, D, window, scale, device, st);
-  if (dtype == 1)
-    return launch_width<__nv_bfloat16>(q, k, v, ln, out, B, S, H, Hkv, D, window, scale, device,
-                                       st);
+    return D == 64 ? launch_fp32<64>(q, k, v, ln, out, B, S, H, Hkv, window, scale, device, st)
+                   : launch_fp32<128>(q, k, v, ln, out, B, S, H, Hkv, window, scale, device, st);
+  if (dtype == 1) {
+    const ContiguousKv kv{S};
+    return D == 64 ? mma::launch_decode_mma<64>(q, k, v, ln, out, workspace, B, H, Hkv, window,
+                                                splits, span, scale, kv, device, st)
+                   : mma::launch_decode_mma<128>(q, k, v, ln, out, workspace, B, H, Hkv, window,
+                                                 splits, span, scale, kv, device, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

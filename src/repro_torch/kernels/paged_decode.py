@@ -7,10 +7,12 @@ its forms: one query token per row over a KV page pool reached through a
 block table, positions below ``lengths[b]`` valid.  ``paged_decode_cuda``
 takes pools of q's dtype; ``paged_decode_int8_cuda`` takes int8 pools with
 bf16 scale pools (the TPU kernel's ``k_scale``/``v_scale``), dequantized in
-the kernel.  Their plain versions are ``kernels.ref.paged_decode_ref`` and
-``paged_decode_quant_ref``; ``kernels.ops.paged_decode`` and
-``paged_decode_quant`` pick between kernel and plain version by the
-tensors' device.
+the kernel.  With q in bfloat16, ``paged_decode_cuda`` runs the tensor-core
+body and cuts each row's table across ``decode_split.decode_splits`` blocks
+when the batch is too small to fill the card.  Their plain versions are
+``kernels.ref.paged_decode_ref`` and ``paged_decode_quant_ref``;
+``kernels.ops.paged_decode`` and ``paged_decode_quant`` pick between kernel
+and plain version by the tensors' device.
 """
 
 from __future__ import annotations
@@ -21,12 +23,13 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_split import decode_splits, split_span
 from repro_torch.kernels.flash_attention import (DTYPES, check_cuda_inputs,
                                                  check_head_dim)
 
 MAX_REP = 16            # query heads per kv head (kMaxRep in the source)
 _HEAD_DIMS = (128,)     # the widths it is built for (qwen3-8b's)
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _INT8_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -99,20 +102,29 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise TypeError("q and the pools must share one dtype")
     check_cuda_inputs((q, k_pool, v_pool, block_tables, lengths), q.dtype)
     b, _, h, d = q.shape
+    maxp = block_tables.shape[1]
+    splits = (decode_splits(b, hkv, maxp * page) if q.dtype == torch.bfloat16
+              else 1)
     out = torch.empty_like(q)
+    work = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     fn = _build.function("paged_decode", "paged_decode_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             DTYPES[q.dtype], b, h, hkv, d, page, block_tables.shape[1],
-             n_pages, d ** -0.5, q.device.index or 0,
+             None if work is None else work.data_ptr(), DTYPES[q.dtype], b,
+             h, hkv, d, page, maxp, n_pages, splits,
+             split_span(maxp * page, splits), d ** -0.5,
+             q.device.index or 0,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
     paged_decode_cuda.launches += 1
+    paged_decode_cuda.last_splits = splits
     return out
 
 
 paged_decode_cuda.launches = 0
+paged_decode_cuda.last_splits = 0   # the splits of the last launch
 
 
 def paged_decode_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,

@@ -21,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, flash_decode, ops
+from repro_torch.kernels.decode_split import (SPLIT_REL, decode_splits,
+                                              head_scaled_err)
 from repro_torch.kernels.ref import (decode_ref, flash_ref, paged_decode_ref,
                                      paged_decode_quant_ref,
                                      paged_verify_quant_ref, paged_verify_ref,
@@ -238,6 +240,45 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, dt):
                                rtol=1e-2)
 
 
+# rows too few to fill the card: in bf16 the kernel cuts each row's cache
+# across blocks (flash-decoding).  (b, s, h, hkv, d, lengths, window): a
+# few long rows; ragged rows with a dead one; a window whose edge crosses
+# split boundaries; a window past the cache under splits; the draft's
+# width with 16 query heads per kv head
+GPU_DECODE_SPLIT = [
+    (2, 4096, 32, 8, 128, (4096, 3900), None),
+    (3, 2048, 32, 8, 128, (2048, 1000, 0), None),
+    (2, 4096, 32, 8, 128, (4096, 3000), 1500),
+    (2, 2048, 32, 8, 128, (2500, 100), 300),
+    (1, 1000, 32, 8, 128, (999,), 100),
+    (2, 4096, 16, 1, 64, (4096, 2500), None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_DECODE_SPLIT)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_decode_kernel_split_rows_match_plain_on_card(cuda, case, dt):
+    b, s, h, hkv, d, lengths, win = case
+    q, kc, vc = (_t(x, dt, cuda) for x in _decode_inputs(
+        s + d + b, b, s, h, hkv, d))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()["flash_decode"]
+    got = ops.decode(q, kc, vc, ln, window=win)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_decode"] == before + 1
+    splits = decode_splits(b, hkv, s)
+    assert splits > 1
+    assert flash_decode.flash_decode_cuda.last_splits == (
+        splits if dt == "bfloat16" else 1)
+    want = decode_ref(q, kc, vc, ln, window=win)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
+                               rtol=1e-2)
+    if dt == "bfloat16":      # split: held to each head's scale as well
+        assert head_scaled_err(got, want) <= SPLIT_REL
+
+
 GPU_VERIFY = [(b, kq, h, hkv, 128, page, lengths, tp)
               for b, kq, h, hkv, _, page, lengths, tp in VERIFY_CASES] + [
     (4, 5, 32, 8, 128, 16, (28, 1, 40, 0), None),  # qwen3-8b spec verify
@@ -423,3 +464,34 @@ def test_new_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="scale"):
         ops.paged_decode_quant(qv[:, :1], qpool, qpool, scale[..., 0],
                                scale, bt, ln[:1])
+    # the bf16 decode paths (tensor cores, split rows) refuse more than 16
+    # query heads a kv head and mixed dtypes, as the fp32 paths do
+    qb = torch.zeros((2, 1, 34, 128), device=cuda, dtype=torch.bfloat16)
+    kb = torch.zeros((2, 4096, 2, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="heads"):
+        ops.decode(qb, kb, kb, ln)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.decode(qb[:, :, :32].contiguous(), kb.float(), kb.float(), ln)
+    pb = torch.zeros((2, 16, 2, 128), device=cuda, dtype=torch.bfloat16)
+    btb = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="heads"):
+        ops.paged_decode(qb, pb, pb, btb, ln)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.paged_decode(qb[:, :, :32].contiguous(), pb.float(), pb.float(),
+                         btb, ln)
+    # the C entry point takes splits only with q in bf16 and a workspace,
+    # and only splits whose span covers the row
+    q32 = torch.zeros((2, 1, 32, 128), device=cuda)
+    k32 = torch.zeros((2, 4096, 8, 128), device=cuda)
+    work = torch.empty(2 * 32 * 2 * 130, device=cuda)
+    fn = _build.function("flash_decode", "flash_decode_fwd",
+                         flash_decode._ARGTYPES)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for dtype, (qq, kk), ws, span in (
+            (0, (q32, k32), None, 2048),
+            (1, (q32.bfloat16(), k32.bfloat16()), None, 2048),
+            (1, (q32.bfloat16(), k32.bfloat16()), work.data_ptr(), 1984)):
+        assert fn(qq.data_ptr(), kk.data_ptr(), kk.data_ptr(),
+                  ln.data_ptr(), qq.data_ptr(), ws, dtype, 2, 4096, 32, 8,
+                  128, -1, 2, span, 128 ** -0.5, cuda.index or 0,
+                  stream) != 0

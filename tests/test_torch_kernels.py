@@ -18,6 +18,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_split import (SPLIT_REL, decode_splits,
+                                              head_scaled_err)
+from repro_torch.kernels.paged_decode import paged_decode_cuda
 from repro_torch.kernels.ref import flash_ref, paged_decode_ref
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -235,6 +238,42 @@ def test_paged_kernel_matches_plain_on_card(cuda, case, dt):
     assert torch.isfinite(got.float()).all()
     np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
                                rtol=1e-2)
+
+
+# rows too few to fill the card: in bf16 the kernel cuts each row's table
+# across blocks (flash-decoding).  A few long rows; ragged rows with a dead
+# one; page 48, so that split boundaries (whole 64-position chunks) fall
+# inside pages; 16 query heads per kv head
+GPU_PAGED_SPLIT = [
+    (2, 32, 8, 128, 16, (4096, 3000)),
+    (3, 32, 8, 128, 16, (4096, 1500, 0)),
+    (3, 32, 8, 128, 48, (2000, 700, 0)),
+    (2, 32, 2, 128, 16, (3000, 0)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_PAGED_SPLIT)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_paged_kernel_split_rows_match_plain_on_card(cuda, case, dt):
+    b, h, hkv, d, page, lengths = case
+    q, kp, vp, bt, ln = _paged(sum(lengths) + b, b, h, hkv, d, page, lengths)
+    q, kp, vp = (_t(x, dt, cuda) for x in (q, kp, vp))
+    bt, ln = torch.from_numpy(bt).to(cuda), torch.from_numpy(ln).to(cuda)
+    before = ops.launch_counts()["paged_decode"]
+    got = ops.paged_decode(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode"] == before + 1
+    splits = decode_splits(b, hkv, bt.shape[1] * page)
+    assert splits > 1
+    assert paged_decode_cuda.last_splits == (splits if dt == "bfloat16"
+                                             else 1)
+    want = paged_decode_ref(q, kp, vp, bt, ln)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
+                               rtol=1e-2)
+    if dt == "bfloat16":      # split: held to each head's scale as well
+        assert head_scaled_err(got, want) <= SPLIT_REL
 
 
 @pytest.mark.gpu
