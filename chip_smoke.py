@@ -13,8 +13,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    bodies, and disassemble their libraries (``cuobjdump -sass``): the bf16
    prefill kernels (D=64 and 128) must hold HGMMA (wgmma), the bf16
    verify kernels (fp and int8 pages) and the bf16 decode kernels (paged
-   at D=128, contiguous at D=64 and 128) HMMA or HGMMA, and the CUDA-core
-   bodies (fp32, int8-page decode) neither;
+   at D=128 over fp and int8 pages, contiguous at D=64 and 128) HMMA or
+   HGMMA, and the CUDA-core bodies (fp32) neither;
 2. hold each kernel against its plain PyTorch version on the card at
    qwen3-8b widths (H=32, Hkv=8, D=128, page 16) and, for the prefill and
    contiguous decode kernels, at the speculative draft's (H=2, Hkv=1,
@@ -23,14 +23,17 @@ Phases, each of which raises (exit code != 0) when it fails:
    time the kernel, the plain version and, as a yardstick the port never
    calls, one ``scaled_dot_product_attention`` on the same (for paged
    kernels: gathered; for int8 pages: gathered and dequantized) inputs with
-   a length mask.  The decode kernels also run on a few long rows (B=2 x
-   4096) and on ragged rows with a dead one, which in bf16 cut each row
-   across blocks (``splits`` > 1, printed with every decode case); a
-   split case is also held to 2e-2 of each (row, head)'s largest |plain|
-   value.  bf16 decode cases under 100 MB are timed again with the L2
+   a length mask.  The decode kernels (int8 pages too) also run on a few
+   long rows (B=2 x 4096) and on ragged rows with a dead one, which in
+   bf16 cut each row across blocks (``splits`` > 1, printed with every
+   decode case); a split case is also held to 2e-2 of each (row, head)'s
+   largest |plain| value.  bf16 decode cases under 100 MB are timed again with the L2
    emptied before each call (``cold_ms``).  The verify kernels also run
    at K = 32 and 33 (128 and 132 query rows per kv head, in tiles), and
    at K = 1 each must equal its paged decode kernel at ``lengths + 1``.
+   The bf16 int8 paged decode kernel is also timed at 32 rows x 4096 with
+   1-4 splits forced (``int8_split_sweep``: what its split target rests
+   on).
    Each bf16 case prints
    ``vs_library`` (ms / library_ms: below 1, faster than the library call)
    and ``bound_share`` (bound_ms / ms: the share of the least time the
@@ -62,7 +65,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    counts are zeroed just before each run and read just after it, and the
    shapes, tables and lengths the run hands each kernel are recorded.
    Each phase reruns its scenario under ``torch.profiler`` for the
-   device's busy share;
+   device's busy share and each port kernel's device time there, with the
+   launches the profiler saw held to the host's counts of the same rerun:
+   on a shortfall the rerun runs again, up to 3 more times, and then the
+   phase's port-kernel times are marked incomplete with both counts;
 5. each kernel against its plain version again, at the shapes its serve
    phase gave it: the most frequent prefill shape, and the decode or verify
    step of median attended length with that step's own table and lengths;
@@ -336,6 +342,7 @@ SASS_RULES = (
     ("paged_verify", ("verify_mma_kernel", "Int8Pages"), ("HMMA", "HGMMA")),
     ("paged_verify", ("attend_kernel",), None),
     ("paged_decode", ("decode_mma_kernelILi128E", "PagedKv"), ("HMMA", "HGMMA")),
+    ("paged_decode", ("decode_mma_kernelILi128E", "DecodeInt8"), ("HMMA", "HGMMA")),
     ("paged_decode", ("attend_kernel",), None),
     ("flash_decode", ("decode_mma_kernelILi64E", "ContiguousKv"), ("HMMA", "HGMMA")),
     ("flash_decode", ("decode_mma_kernelILi128E", "ContiguousKv"), ("HMMA", "HGMMA")),
@@ -595,11 +602,11 @@ def paged_case(name, bt, lengths, dt, *, iters=100, quant=False, page=PAGE):
                               page)
     got = kernel(q, *pools, btc, ln)
     torch.cuda.synchronize()
-    # the int8 form runs the CUDA-core body, which never splits a row
-    splits = 1 if quant else kernel.last_splits
+    splits = kernel.last_splits
     want = plain(q, *pools, btc, ln)
     err = check(f"paged{' int8' * quant} {name}", got, want, dt)
-    scaled = check_splits(f"paged {name}", got, want, splits)
+    scaled = check_splits(f"paged{' int8' * quant} {name}", got, want,
+                          splits)
     kg, vg = _gathered(pools, btc, q.dtype)
     mask = (torch.arange(maxp * page, device="cuda")[None, :]
             < ln[:, None])[:, None, None, :]
@@ -627,6 +634,48 @@ def paged_case(name, bt, lengths, dt, *, iters=100, quant=False, page=PAGE):
         f"lengths={_shown(lengths)} H={H} Hkv={HKV} D={D} page={page}"
         + (" int8 pages" if quant else ""), splits=splits, max_abs_err=err,
         tol=TOL[dt], **scaled, **t, **bound(nbytes, flops, dt)), run, iters)
+
+
+def int8_split_sweep(splits=(1, 2, 3, 4), iters=20) -> dict:
+    """The bf16 int8 paged decode kernel at 32 rows x 4096 with its split
+    count forced -- the C entry point called directly, so no wrapper
+    counts these launches -- each held to the plain version and timed:
+    the measurement ``decode_split.TARGET_BLOCKS_INT8`` rests on."""
+    import torch
+    from repro_torch.kernels import _build, paged_decode
+    from repro_torch.kernels.decode_split import split_span
+    from repro_torch.kernels.ref import paged_decode_quant_ref
+    lengths = [4096] * 32
+    bt = fresh_tables(lengths)
+    b, maxp = bt.shape
+    q, pools, btc, ln = _pool(bt, lengths, 1, "bfloat16", 5, True)
+    want = paged_decode_quant_ref(q, *pools, btc, ln)
+    fn = _build.function("paged_decode", "paged_decode_int8_fwd",
+                         paged_decode._INT8_ARGTYPES)
+    out = {}
+    for z in splits:
+        work = torch.empty(b * H * z * (D + 2), device="cuda")
+        got = torch.empty_like(q)
+
+        def run():
+            err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
+                     btc.data_ptr(), ln.data_ptr(), got.data_ptr(),
+                     work.data_ptr(), 1, b, H, HKV, D, PAGE, maxp,
+                     pools[0].shape[0], z, split_span(maxp * PAGE, z),
+                     D ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"paged_decode_int8_fwd: CUDA error {err}")
+
+        run()
+        torch.cuda.synchronize()
+        err = check(f"paged int8 long, {z} splits", got, want, "bfloat16")
+        if z > 1:
+            check_splits(f"paged int8 long, {z} splits", got, want, z)
+        out[z] = dict(zip(("ms", "timed_by"), device_ms(run, iters)),
+                      max_abs_err=err)
+    log("  paged_decode_int8 long (B=32 x 4096, bf16) with its splits forced:"
+        + "".join(f" {z}: {r['ms']:.4f} ms" for z, r in out.items()))
+    return out
 
 
 def verify_case(name, bt, lengths, kq, dt, *, iters=100, quant=False):
@@ -775,25 +824,32 @@ def phase_kernels():
                        quant=True),
             paged_case("long", fresh_tables([4096] * 32), [4096] * 32, dt,
                        iters=20, quant=True),
+            paged_case("few long", fresh_tables([4096] * 2), [4096] * 2, dt,
+                       iters=100, quant=True),
+            paged_case("ragged", fresh_tables(ragged, page=256), ragged, dt,
+                       iters=100, quant=True, page=256),
         ]
         for quant in (False, True):
             err = verify_one_token_is_decode(dt, quant)
             log(f"  paged_verify{'_int8' * quant} K=1 {dt}: max_err "
                 f"{err:.2e} against paged decode{' int8' * quant} at "
                 f"lengths + 1")
+    sweep = int8_split_sweep()
     cases = {name: [with_ratios(r) for r in rows]
              for name, rows in cases.items()}
     for name, rows in cases.items():
         for r in rows:
             show(name, r)
     # too few rows to fill the card: the bf16 decode kernels split them
-    for name in ("paged_decode", "flash_decode", "flash_decode_d64"):
+    for name in ("paged_decode", "paged_decode_int8", "flash_decode",
+                 "flash_decode_d64"):
         for r in cases[name]:
             if (r["case"] in ("few long", "ragged", "window")
                     and r["dtype"] == "bfloat16" and r["splits"] < 2):
                 raise AssertionError(f"{name} {r['case']}: ran with "
                                      f"{r['splits']} split")
     log("kernel_cases " + json.dumps(cases))
+    log("int8_split_sweep " + json.dumps(sweep))
     return cases
 
 
@@ -1210,24 +1266,79 @@ def phase_serve(phase, params, first=None):
     return out, mine, seen
 
 
-def profile_rerun(rerun, first) -> dict:
+def port_kernel_of(name: str):
+    """The ops.KERNELS entry a profiled device kernel of a serve phase (all
+    bf16) belongs to, read from its name ("merge" for
+    decode_combine_kernel, which a split decode call of any decode entry
+    launches after its kernel), or None for a kernel that is not the
+    port's."""
+    if "repro_torch" not in name:
+        return None
+    if "decode_combine_kernel" in name:
+        return "merge"
+    if "flash_wgmma_kernel" in name:
+        return "flash_attention"
+    if "verify_mma_kernel" in name:
+        return "paged_verify_int8" if "Int8Pages" in name else "paged_verify"
+    if "decode_mma_kernel" in name:
+        if "ContiguousKv" in name:
+            return "flash_decode"
+        return "paged_decode_int8" if "DecodeInt8" in name else "paged_decode"
+    raise AssertionError(f"a port kernel no bf16 entry point owns: {name}")
+
+
+def profile_rerun(rerun, first, attempts: int = 4) -> dict:
     """Run the same scenario again (``rerun()`` returns its ``results`` and
     ``wall_s``) under ``torch.profiler`` and return the device's busy time
-    over the replay and the kernels that take it."""
+    over the replay, the kernels that take it, and each port kernel's
+    device time and launches.  The launches the profiler saw of each port
+    kernel are held to the host's counts of that rerun (``ops``' counters,
+    zeroed just before it; the merges of split rows to
+    ``ops.merge_launches()``): the profiler may drop records, and then the
+    port kernels' times would be short.  On a mismatch the profiled rerun
+    runs again, up to ``attempts`` in all; if none matches, the last one's
+    times are kept and marked incomplete (``port_kernels_complete``), with
+    both counts in ``port_launch_check``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again = rerun()
+    from repro_torch.kernels import ops
+    for attempt in range(1, attempts + 1):
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = rerun()
+        host = dict(ops.launch_counts(), merge=ops.merge_launches())
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_name, count = {}, collections.Counter()
+        for e in kern:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+            count[e.name] += 1
+        seen = collections.Counter()
+        for name, n in count.items():
+            kernel = port_kernel_of(name)
+            if kernel is not None:
+                seen[kernel] += n
+        check = {k: dict(host_launches=host.get(k, 0),
+                         profiler_launches=seen.get(k, 0))
+                 for k in sorted(set(host) | set(seen))
+                 if host.get(k, 0) or seen.get(k, 0)}
+        complete = bool(kern) and all(
+            c["host_launches"] == c["profiler_launches"]
+            for c in check.values())
+        if complete:
+            break
+        log(f"  profiled rerun {attempt} of {attempts}: the profiler's port "
+            f"kernel launches differ from the host's: "
+            + ", ".join(f"{k} {c['profiler_launches']} of "
+                        f"{c['host_launches']}" for k, c in check.items()
+                        if c["host_launches"] != c["profiler_launches"]))
     same = all((again["results"][r] == t).all() if len(t) == len(
         again["results"][r]) else False for r, t in first["results"].items())
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
         log("  profiler saw no device activity: busy share not measured")
-        return dict(busy_share=None, same_tokens=same)
-    by_name, count = {}, collections.Counter()
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        count[e.name] += 1
+        return dict(busy_share=None, same_tokens=same,
+                    port_kernels_complete=False, profile_attempts=attempt,
+                    port_launch_check=check)
     busy_ms = sum(by_name.values()) / 1e3
     wall_ms = again["wall_s"] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -1237,15 +1348,22 @@ def profile_rerun(rerun, first) -> dict:
     for name, us in top:
         log(f"    {us / 1e3:9.2f} ms  {name[:90]}")
     # the port's own kernels, each with its launches in the replay
-    port = {n[:160]: dict(ms=us / 1e3, launches=count[n])
-            for n, us in by_name.items() if "repro_torch" in n}
+    port = {n[:160]: dict(ms=us / 1e3, launches=count[n],
+                          kernel=port_kernel_of(n))
+            for n, us in by_name.items() if port_kernel_of(n) is not None}
     for name, r in port.items():
         log(f"    port kernel {r['ms']:9.3f} ms in {r['launches']} launches"
             f"  {name}")
+    log(f"  port kernel times {'complete' if complete else 'INCOMPLETE'} "
+        f"after {attempt} profiled rerun(s): profiler / host launches "
+        + ", ".join(f"{k} {c['profiler_launches']}/{c['host_launches']}"
+                    for k, c in check.items()))
     return dict(busy_ms=busy_ms, profiled_wall_ms=wall_ms,
                 busy_share=busy_ms / wall_ms, kernel_launches=len(kern),
                 top_kernels_ms={n[:90]: us / 1e3 for n, us in top},
-                port_kernels=port, same_tokens=same)
+                port_kernels=port, port_kernels_complete=complete,
+                profile_attempts=attempt, port_launch_check=check,
+                same_tokens=same)
 
 
 def phase_prefix(params):

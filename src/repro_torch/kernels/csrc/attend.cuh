@@ -1,11 +1,10 @@
 // Shared CUDA-core body of the port's decode-shaped attention kernels
-// where the tensor cores would miss the tolerance or are not yet used: q
-// in fp32 for contiguous decode, paged decode and paged multi-token verify
-// (fp32 FMAs hold the 1e-4 fp32 tolerance that bf16 or TF32 tensor-core
-// inputs would not), and paged decode over int8 pages in both q types (row
-// 2q, next to move onto the tensor cores).  The bf16 paths run elsewhere:
-// decode over bf16 caches and pools on decode_mma.cuh, verify on
-// attend_mma.cuh.  One block per (kv head, batch row, tile of at most
+// where the tensor cores would miss the tolerance: q in fp32 for
+// contiguous decode and for paged decode and paged multi-token verify over
+// fp32 or int8 pages (fp32 FMAs hold the 1e-4 fp32 tolerance that bf16 or
+// TF32 tensor-core inputs would not).  The bf16 paths run elsewhere:
+// decode over bf16 caches and bf16 or int8 pools on decode_mma.cuh, verify
+// on attend_mma.cuh.  One block per (kv head, batch row, tile of at most
 // kMaxRows query rows) attends those query rows to the row's KV, which it
 // walks in 64-position chunks with an online softmax in fp32.
 //
@@ -75,6 +74,13 @@ struct PagedKv {
     const int phys = block_tables[(size_t)b * maxp + lp];
     if (phys < 0 || phys >= P) __trap();
     return (size_t)phys * page + (pos - lp * page);
+  }
+  // slot() of position lp * page + off (0 <= off < page), for a caller
+  // that walks the pages itself instead of dividing by page per position
+  __device__ __forceinline__ size_t slot_at(int b, int lp, int off) const {
+    const int phys = block_tables[(size_t)b * maxp + lp];
+    if (phys < 0 || phys >= P) __trap();
+    return (size_t)phys * page + off;
   }
 };
 

@@ -1,5 +1,5 @@
-// Shared helpers for the port's attention kernels: element conversion,
-// 16-byte vector loads from device memory into float shared memory, and the
+// Shared helpers for the port's attention kernels: 16-byte vector loads of
+// fp32 from device memory (the CUDA-core body's element type), and the
 // asynchronous-copy and bf16-packing steps of the tensor-core bodies.
 #pragma once
 
@@ -28,22 +28,6 @@ template <> struct Elem<float> {
     dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
   }
   __device__ static __forceinline__ float store(float x) { return x; }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static __forceinline__ void load_vec(const __nv_bfloat16* src, float* dst) {
-    const uint4 v = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-  // round to nearest even, as torch's float -> bfloat16 cast does
-  __device__ static __forceinline__ __nv_bfloat16 store(float x) { return __float2bfloat16(x); }
 };
 
 constexpr int kMaxDevices = 64;

@@ -75,9 +75,11 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                    : launch_fp32<128>(q, k, v, ln, out, B, S, H, Hkv, window, scale, device, st);
   if (dtype == 1) {
     const ContiguousKv kv{S};
-    return D == 64 ? mma::launch_decode_mma<64>(q, k, v, ln, out, workspace, B, H, Hkv, window,
+    const mma::DecodeBf16 src{static_cast<const __nv_bfloat16*>(k),
+                              static_cast<const __nv_bfloat16*>(v)};
+    return D == 64 ? mma::launch_decode_mma<64>(q, src, ln, out, workspace, B, H, Hkv, window,
                                                 splits, span, scale, kv, device, st)
-                   : mma::launch_decode_mma<128>(q, k, v, ln, out, workspace, B, H, Hkv, window,
+                   : mma::launch_decode_mma<128>(q, src, ln, out, workspace, B, H, Hkv, window,
                                                  splits, span, scale, kv, device, st);
   }
   return (int)cudaErrorInvalidValue;

@@ -4,10 +4,13 @@ The tensor-core decode body (``csrc/decode_mma.cuh``) runs one block per
 (kv head, batch row, split).  Split ``z`` of ``splits`` walks a fixed range
 of whole 64-position chunks of the row's ``n`` positions (``split_ranges``;
 the wrappers pass the kernel its length, ``split_span``), and a second
-kernel merges the splits' partial softmax sums.  The host chooses ``splits`` from the batch, the kv heads and ``n`` alone: the
-lengths lie on the card, and reading them would synchronise.  Both decode
-wrappers call ``decode_splits``; ``kernels.ref.decode_split_ref`` and
-``paged_decode_split_ref`` repeat the split-then-merge in plain PyTorch.
+kernel merges the splits' partial softmax sums.  The host chooses
+``splits`` from the batch, the kv heads and ``n`` alone: the lengths lie on
+the card, and reading them would synchronise.  The decode wrappers call
+``decode_splits`` (the int8-page one with its own target);
+``kernels.ref.decode_split_ref``, ``paged_decode_split_ref`` and
+``paged_decode_quant_split_ref`` repeat the split-then-merge in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -16,6 +19,11 @@ from typing import List, Tuple
 
 CHUNK = 64            # positions a block stages per step (kChunk)
 TARGET_BLOCKS = 264   # two blocks of 4 warps on each of the H100's 132 SMs
+# the int8-page body (70 KB of shared memory: three blocks share an SM) is
+# bound by the latency of its walk on long rows and gains from more, shorter
+# blocks: about two waves of three blocks on each SM (3 splits of 32 rows x
+# 4096, where 1 and 2 are slower: chip_smoke.py's int8_split_sweep, PERF.md)
+TARGET_BLOCKS_INT8 = 792
 MIN_CHUNKS = 4        # chunks a split walks, at the least (but the last)
 # a split output is held, besides the absolute bf16 tolerance, to this share
 # of each (row, head)'s largest |plain| value: rounding to bf16 moves an
@@ -24,15 +32,16 @@ MIN_CHUNKS = 4        # chunks a split walks, at the least (but the last)
 SPLIT_REL = 2e-2
 
 
-def decode_splits(b: int, hkv: int, n: int) -> int:
+def decode_splits(b: int, hkv: int, n: int,
+                  target: int = TARGET_BLOCKS) -> int:
     """Splits of a row's ``n`` positions for ``b`` rows of ``hkv`` kv
-    heads: 1 when the ``b * hkv`` blocks already come near
-    ``TARGET_BLOCKS`` or the row is only a few chunks long; else about
-    ``TARGET_BLOCKS`` blocks in all, each split ``MIN_CHUNKS`` chunks or
-    more, every split non-empty."""
+    heads: 1 when the ``b * hkv`` blocks already come near ``target``
+    (``TARGET_BLOCKS``; the int8-page kernel's ``TARGET_BLOCKS_INT8``) or
+    the row is only a few chunks long; else about ``target`` blocks in all,
+    each split ``MIN_CHUNKS`` chunks or more, every split non-empty."""
     blocks = b * hkv
     chunks = -(-n // CHUNK)
-    splits = min((TARGET_BLOCKS + blocks // 2) // blocks, chunks // MIN_CHUNKS)
+    splits = min((target + blocks // 2) // blocks, chunks // MIN_CHUNKS)
     if splits <= 1:
         return 1
     per = -(-chunks // splits)

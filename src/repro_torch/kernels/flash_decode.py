@@ -69,8 +69,10 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
     flash_decode_cuda.launches += 1
     flash_decode_cuda.last_splits = splits
+    flash_decode_cuda.merge_launches += splits > 1
     return out
 
 
 flash_decode_cuda.launches = 0
 flash_decode_cuda.last_splits = 0   # the splits of the last launch
+flash_decode_cuda.merge_launches = 0   # launches that also merged splits

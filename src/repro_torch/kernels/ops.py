@@ -4,8 +4,10 @@ Port of ``repro.kernels.ops``: a CPU tensor goes to the kernel's plain
 version (``kernels.ref``), a CUDA tensor launches the hand-written CUDA
 kernel or raises -- no ``try`` falls back to the plain version, and no
 library attention stands in for a kernel.  Each kernel wrapper counts its
-launches; ``launch_counts`` reads them and ``reset_launch_counts`` zeroes
-them, so a run can show that its path went through the kernels.
+launches; ``launch_counts`` reads them (``merge_launches``: the split
+decode calls that also launched the merge of their splits) and
+``reset_launch_counts`` zeroes them, so a run can show that its path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -136,6 +138,16 @@ def launch_counts() -> Dict[str, int]:
     return {name: k["wrapper"].launches for name, k in KERNELS.items()}
 
 
+def merge_launches() -> int:
+    """Launches of the merge of split rows: a bf16 decode call that cut its
+    rows into splits launches it once after its kernel (the wrappers with a
+    ``merge_launches`` count)."""
+    return sum(getattr(k["wrapper"], "merge_launches", 0)
+               for k in KERNELS.values())
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k["wrapper"].launches = 0
+        if hasattr(k["wrapper"], "merge_launches"):
+            k["wrapper"].merge_launches = 0

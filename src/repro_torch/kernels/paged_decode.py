@@ -7,9 +7,9 @@ its forms: one query token per row over a KV page pool reached through a
 block table, positions below ``lengths[b]`` valid.  ``paged_decode_cuda``
 takes pools of q's dtype; ``paged_decode_int8_cuda`` takes int8 pools with
 bf16 scale pools (the TPU kernel's ``k_scale``/``v_scale``), dequantized in
-the kernel.  With q in bfloat16, ``paged_decode_cuda`` runs the tensor-core
-body and cuts each row's table across ``decode_split.decode_splits`` blocks
-when the batch is too small to fill the card.  Their plain versions are
+the kernel.  With q in bfloat16 both run the tensor-core body and cut each
+row's table across ``decode_split.decode_splits`` blocks when the batch is
+too small to fill the card.  Their plain versions are
 ``kernels.ref.paged_decode_ref`` and ``paged_decode_quant_ref``;
 ``kernels.ops.paged_decode`` and ``paged_decode_quant`` pick between kernel
 and plain version by the tensors' device.
@@ -23,7 +23,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_split import decode_splits, split_span
+from repro_torch.kernels.decode_split import (TARGET_BLOCKS,
+                                              TARGET_BLOCKS_INT8,
+                                              decode_splits, split_span)
 from repro_torch.kernels.flash_attention import (DTYPES, check_cuda_inputs,
                                                  check_head_dim)
 
@@ -31,7 +33,7 @@ MAX_REP = 16            # query heads per kv head (kMaxRep in the source)
 _HEAD_DIMS = (128,)     # the widths it is built for (qwen3-8b's)
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_INT8_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+_INT8_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -83,6 +85,18 @@ def check_int8_pools(q: torch.Tensor, k_pool: torch.Tensor,
                              f"{s.is_contiguous()}")
 
 
+def _splits_and_workspace(q: torch.Tensor, hkv: int, n: int, target: int):
+    """The bf16 kernels' splits of a row's ``n`` positions toward ``target``
+    blocks (fp32 takes 1) and, with more than one, their fp32 workspace
+    (uninitialised: every split writes its partial)."""
+    b, _, h, d = q.shape
+    splits = (decode_splits(b, hkv, n, target) if q.dtype == torch.bfloat16
+              else 1)
+    work = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    return splits, work
+
+
 def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                       v_pool: torch.Tensor, block_tables: torch.Tensor,
                       lengths: torch.Tensor) -> torch.Tensor:
@@ -103,11 +117,8 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     check_cuda_inputs((q, k_pool, v_pool, block_tables, lengths), q.dtype)
     b, _, h, d = q.shape
     maxp = block_tables.shape[1]
-    splits = (decode_splits(b, hkv, maxp * page) if q.dtype == torch.bfloat16
-              else 1)
+    splits, work = _splits_and_workspace(q, hkv, maxp * page, TARGET_BLOCKS)
     out = torch.empty_like(q)
-    work = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
-                        device=q.device) if splits > 1 else None)
     fn = _build.function("paged_decode", "paged_decode_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
@@ -120,11 +131,13 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
     paged_decode_cuda.launches += 1
     paged_decode_cuda.last_splits = splits
+    paged_decode_cuda.merge_launches += splits > 1
     return out
 
 
 paged_decode_cuda.launches = 0
 paged_decode_cuda.last_splits = 0   # the splits of the last launch
+paged_decode_cuda.merge_launches = 0   # launches that also merged splits
 
 
 def paged_decode_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -134,7 +147,8 @@ def paged_decode_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     """Launch the int8 paged decode kernel.  q: (B, 1, H, D) fp32 or bf16;
     pools (P, page, Hkv, D) int8; scale pools (P, page, Hkv, 1) bf16;
     tables and lengths as in ``paged_decode_cuda`` -> (B, 1, H, D) of q's
-    dtype."""
+    dtype.  In bf16 it splits rows as ``paged_decode_cuda`` does, toward
+    ``TARGET_BLOCKS_INT8`` blocks."""
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"bad shapes q{tuple(q.shape)}")
     n_pages, page, hkv = check_paged_inputs(q, k_pool, v_pool, block_tables,
@@ -142,20 +156,29 @@ def paged_decode_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     check_int8_pools(q, k_pool, v_pool, k_scale, v_scale)
     check_cuda_inputs((q, k_pool, v_pool, block_tables, lengths), q.dtype)
     b, _, h, d = q.shape
+    maxp = block_tables.shape[1]
+    splits, work = _splits_and_workspace(q, hkv, maxp * page,
+                                         TARGET_BLOCKS_INT8)
     out = torch.empty_like(q)
     fn = _build.function("paged_decode", "paged_decode_int8_fwd",
                          _INT8_ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              k_scale.data_ptr(), v_scale.data_ptr(),
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             DTYPES[q.dtype], b, h, hkv, d, page, block_tables.shape[1],
-             n_pages, d ** -0.5, q.device.index or 0,
+             None if work is None else work.data_ptr(), DTYPES[q.dtype], b,
+             h, hkv, d, page, maxp, n_pages, splits,
+             split_span(maxp * page, splits), d ** -0.5,
+             q.device.index or 0,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode_int8 launch failed: CUDA error "
                            f"{err}")
     paged_decode_int8_cuda.launches += 1
+    paged_decode_int8_cuda.last_splits = splits
+    paged_decode_int8_cuda.merge_launches += splits > 1
     return out
 
 
 paged_decode_int8_cuda.launches = 0
+paged_decode_int8_cuda.last_splits = 0   # the splits of the last launch
+paged_decode_int8_cuda.merge_launches = 0   # launches that also merged splits

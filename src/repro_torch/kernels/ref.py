@@ -5,9 +5,10 @@ Port of ``repro.kernels.ref`` (``flash_ref``, ``decode_ref``,
 ``paged_decode_ref``, ``paged_decode_quant_ref``, ``verify_ref``,
 ``paged_verify_ref``, ``paged_verify_quant_ref``).  They repeat
 the kernels' arithmetic in float32 with whole-tensor operations; they are
-no yardstick of speed.  ``decode_split_ref`` and ``paged_decode_split_ref``
-repeat the bf16 decode kernels' split-then-merge (flash-decoding) and
-compute the same function as ``decode_ref`` and ``paged_decode_ref``; the
+no yardstick of speed.  ``decode_split_ref``, ``paged_decode_split_ref``
+and ``paged_decode_quant_split_ref`` repeat the bf16 decode kernels'
+split-then-merge (flash-decoding) and compute the same function as
+``decode_ref``, ``paged_decode_ref`` and ``paged_decode_quant_ref``; the
 tests hold them to it, and no path calls them.
 """
 
@@ -17,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.decode_split import decode_splits, split_ranges
+from repro_torch.kernels.decode_split import (TARGET_BLOCKS_INT8,
+                                              decode_splits, split_ranges)
 from repro_torch.models.attention import (_NEG_INF, _expand_kv,
                                           decode_attention, kv_dequantize,
                                           reference_attention,
@@ -157,6 +159,24 @@ def paged_decode_quant_ref(q: torch.Tensor, k_pool: torch.Tensor,
     k = _gather_dequantized(k_pool, k_scale, block_tables, q.dtype)
     v = _gather_dequantized(v_pool, v_scale, block_tables, q.dtype)
     return decode_attention(q, k, v, lengths)
+
+
+def paged_decode_quant_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, k_scale: torch.Tensor,
+                                 v_scale: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 lengths: torch.Tensor, *,
+                                 splits: Optional[int] = None) -> torch.Tensor:
+    """``paged_decode_quant_ref`` as the bf16 int8 paged decode kernel
+    splits it: pages and scales gathered and dequantized to q's dtype, then
+    ``decode_split_ref`` over the row's ``maxp * page`` positions (default
+    splits ``decode_splits(B, Hkv, maxp * page, TARGET_BLOCKS_INT8)``)."""
+    k = _gather_dequantized(k_pool, k_scale, block_tables, q.dtype)
+    v = _gather_dequantized(v_pool, v_scale, block_tables, q.dtype)
+    if splits is None:
+        splits = decode_splits(q.shape[0], k_pool.shape[2], k.shape[1],
+                               TARGET_BLOCKS_INT8)
+    return decode_split_ref(q, k, v, lengths, splits=splits)
 
 
 def paged_verify_quant_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -45,8 +45,12 @@ def sample(generator: Optional[torch.Generator], logits: torch.Tensor,
     if top_p < 1.0:
         sorted_lg = torch.sort(lg, dim=-1, descending=True).values
         cum = torch.cumsum(torch.softmax(sorted_lg, dim=-1), dim=-1)
-        # smallest set with cumulative probability >= top_p
-        cutoff_idx = torch.sum(cum < top_p, dim=-1, keepdim=True)
+        # smallest set with cumulative probability >= top_p.  Where the
+        # float32 sum never reaches top_p the count is V: the reference's
+        # take_along_axis then reads NaN and masks nothing; the index is
+        # clamped to V - 1, whose cutoff (the smallest logit) masks nothing
+        cutoff_idx = torch.sum(cum < top_p, dim=-1, keepdim=True).clamp(
+            max=lg.shape[-1] - 1)
         cutoff = torch.gather(sorted_lg, -1, cutoff_idx)
         lg = torch.where(lg < cutoff, torch.full_like(lg, -1e30), lg)
     drawn = torch.multinomial(torch.softmax(lg, dim=-1), 1,

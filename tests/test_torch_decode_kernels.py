@@ -1,7 +1,7 @@
 """Port kernels of the slot and speculative paths: contiguous decode and
 paged multi-token verify (any K: the kernel tiles the query rows), the
-int8-page forms of paged decode and verify, plus the prefill kernel at the
-draft's width.
+int8-page forms of paged decode (split rows in bf16, and the trap on a bad
+table entry) and verify, plus the prefill kernel at the draft's width.
 
 CPU cases hand the same numpy inputs (fixed seeds) to the port's plain
 versions (``decode_ref``, ``paged_verify_ref``) and to the JAX package's
@@ -17,13 +17,18 @@ same int8 pages) and skip without a card.  JAX is imported inside the CPU cases 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_decode_kernels.py
 """
 
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, flash_decode, ops
-from repro_torch.kernels.decode_split import (SPLIT_REL, decode_splits,
-                                              head_scaled_err)
+from repro_torch.kernels import _build, flash_decode, ops, paged_decode
+from repro_torch.kernels.decode_split import (SPLIT_REL, TARGET_BLOCKS_INT8,
+                                              decode_splits, head_scaled_err)
 from repro_torch.kernels.ref import (decode_ref, flash_ref, paged_decode_ref,
                                      paged_decode_quant_ref,
                                      paged_verify_quant_ref, paged_verify_ref,
@@ -197,6 +202,7 @@ def test_ops_cpu_tensors_take_the_plain_versions_of_both():
                                         "paged_decode_int8",
                                         "paged_verify_int8"}
     assert not any(ops.launch_counts().values())
+    assert ops.merge_launches() == 0
 
 
 # ------------------------------------------------------------------ card
@@ -373,6 +379,144 @@ def test_int8_paged_decode_kernel_matches_plain_on_card(cuda, case, dt):
     assert torch.isfinite(got.float()).all()
     np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
                                rtol=1e-2)
+
+
+# rows too few to fill the card: in bf16 the int8 kernel cuts each row's
+# table across blocks as the bf16-page one does, toward TARGET_BLOCKS_INT8
+# blocks.  (b, h, hkv, d, page, lengths): 32 long rows (3 splits); a few
+# long rows; ragged rows with a dead one on 256-position pages (split
+# boundaries inside pages); a long row beside a dead one; one row; 16
+# query heads a kv head
+GPU_DECODE_INT8_SPLIT = [
+    (32, 32, 8, 128, 16, (4096,) * 32),
+    (2, 32, 8, 128, 16, (4096, 3900)),
+    (3, 32, 8, 128, 256, (4096, 1500, 0)),
+    (2, 32, 8, 128, 16, (2048, 0)),
+    (1, 32, 8, 128, 16, (999,)),
+    (2, 16, 1, 128, 16, (4096, 2500)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_DECODE_INT8_SPLIT)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_int8_paged_decode_split_rows_match_plain_on_card(cuda, case, dt):
+    b, h, hkv, d, page, lengths = case
+    q, kp, vp, bt, ln = _verify_inputs(sum(lengths) + h, b, 1, h, hkv, d,
+                                       page, lengths, None)
+    pools = _int8_pools(kp, vp, cuda)
+    q = _t(q, dt, cuda)
+    bt, ln = torch.from_numpy(bt).to(cuda), torch.from_numpy(ln).to(cuda)
+    before = ops.launch_counts()["paged_decode_int8"]
+    merges = ops.merge_launches()
+    got = ops.paged_decode_quant(q, *pools, bt, ln)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_int8"] == before + 1
+    assert ops.merge_launches() == merges + (dt == "bfloat16")
+    splits = decode_splits(b, hkv, bt.shape[1] * page, TARGET_BLOCKS_INT8)
+    assert splits > 1
+    assert paged_decode.paged_decode_int8_cuda.last_splits == (
+        splits if dt == "bfloat16" else 1)
+    want = paged_decode_quant_ref(q, *pools, bt, ln)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _np(want), atol=CUDA_ATOL[dt],
+                               rtol=1e-2)
+    if dt == "bfloat16":      # split: held to each head's scale as well
+        assert head_scaled_err(got, want) <= SPLIT_REL
+
+
+# a table entry outside [0, P) inside a row's walk: the kernel traps (a
+# device fault that ends the process's CUDA context, hence a child
+# process per case) where the valid table ran.  (dtype, lengths, the bad
+# entry: "P" one past the pool, or -1): one split, split rows, fp32
+TRAP_CASES = [("bfloat16", (40, 25), "P"), ("bfloat16", (4096, 3000), -1),
+              ("float32", (40, 25), "P")]
+_TRAP_CHILD = """
+import ast
+import sys
+import torch
+from repro_torch.kernels import ops, paged_decode
+from repro_torch.models.attention import kv_quantize
+dt, lengths = getattr(torch, sys.argv[1]), ast.literal_eval(sys.argv[2])
+bad = sys.argv[3]
+page, b = 16, len(lengths)
+g = torch.Generator("cuda").manual_seed(0)
+alloc = [-(-n // page) for n in lengths]
+n_pool = 1 + sum(alloc)
+q = torch.randn((b, 1, 32, 128), generator=g, device="cuda").to(dt)
+kq, ks = kv_quantize(torch.randn((n_pool, page, 8, 128), generator=g,
+                                 device="cuda"))
+vq, vs = kv_quantize(torch.randn((n_pool, page, 8, 128), generator=g,
+                                 device="cuda"))
+bt = torch.zeros((b, max(alloc) + 1), dtype=torch.int32)
+nxt = 1
+for i, a in enumerate(alloc):
+    bt[i, :a] = torch.arange(nxt, nxt + a)
+    nxt += a
+bt, ln = bt.cuda(), torch.tensor(lengths, dtype=torch.int32, device="cuda")
+ops.paged_decode_quant(q, kq, vq, ks, vs, bt, ln)
+torch.cuda.synchronize()
+print("VALID_RAN splits", paged_decode.paged_decode_int8_cuda.last_splits,
+      flush=True)
+bt[0, alloc[0] // 2] = n_pool if bad == "P" else int(bad)
+try:
+    ops.paged_decode_quant(q, kq, vq, ks, vs, bt, ln)
+    torch.cuda.synchronize()
+    print("NO_TRAP", flush=True)
+except RuntimeError as err:
+    print("TRAPPED:", str(err).splitlines()[0], flush=True)
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TRAP_CASES)
+def test_int8_paged_decode_traps_on_a_bad_table_entry_on_card(cuda, case):
+    dt, lengths, bad = case
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(src)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-c", _TRAP_CHILD, dt,
+                           repr(lengths), str(bad)], capture_output=True,
+                          text=True, timeout=600, env=env)
+    out = proc.stdout
+    print(out.strip())
+    assert "VALID_RAN" in out, proc.stderr[-3000:]
+    want_splits = (decode_splits(len(lengths), 8, (max(
+        -(-n // 16) for n in lengths) + 1) * 16, TARGET_BLOCKS_INT8)
+                   if dt == "bfloat16" else 1)
+    assert f"VALID_RAN splits {want_splits}" in out
+    assert "TRAPPED:" in out and "NO_TRAP" not in out, out + proc.stderr[-3000:]
+
+
+@pytest.mark.gpu
+def test_int8_entry_point_takes_splits_only_in_bf16_with_a_workspace(cuda):
+    q = torch.zeros((2, 1, 32, 128), device=cuda)
+    pool = torch.zeros((260, 16, 8, 128), dtype=torch.int8, device=cuda)
+    scale = torch.zeros((260, 16, 8, 1), dtype=torch.bfloat16, device=cuda)
+    bt = torch.zeros((2, 257), dtype=torch.int32, device=cuda)
+    ln = torch.ones(2, dtype=torch.int32, device=cuda)
+    work = torch.empty(2 * 32 * 13 * 130, device=cuda)
+    fn = _build.function("paged_decode", "paged_decode_int8_fwd",
+                         paged_decode._INT8_ARGTYPES)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    # fp32 with splits; bf16 without a workspace; a span short of the row
+    for dtype, qq, ws, splits, span in (
+            (0, q, work.data_ptr(), 13, 320), (1, q.bfloat16(), None, 13, 320),
+            (1, q.bfloat16(), work.data_ptr(), 13, 256)):
+        assert fn(qq.data_ptr(), pool.data_ptr(), pool.data_ptr(),
+                  scale.data_ptr(), scale.data_ptr(), bt.data_ptr(),
+                  ln.data_ptr(), qq.data_ptr(), ws, dtype, 2, 32, 8, 128, 16,
+                  257, 260, splits, span, 128 ** -0.5, cuda.index or 0,
+                  stream) != 0
+    # and runs where the split covers the row
+    out = torch.empty_like(q.bfloat16())
+    assert fn(q.bfloat16().data_ptr(), pool.data_ptr(), pool.data_ptr(),
+              scale.data_ptr(), scale.data_ptr(), bt.data_ptr(),
+              ln.data_ptr(), out.data_ptr(), work.data_ptr(), 1, 2, 32, 8,
+              128, 16, 257, 260, 13, 320, 128 ** -0.5, cuda.index or 0,
+              stream) == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
 
 
 @pytest.mark.gpu
