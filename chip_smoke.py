@@ -50,7 +50,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    token history (all attend the same quantized values) within 1e-3 *
    max|logit|, and their greedy tokens must be identical.  A prefix-cache
    engine serves two waves sharing a 48-token prefix: the warm prefill's
-   logits and the decode steps after it are held to fresh prefills;
+   logits and the decode steps after it are held to fresh prefills.  A
+   disaggregated pair (``DisaggEngineExecutor``: a prefill engine and a
+   decode engine over the same weights) serves the paged engine's
+   requests: its greedy tokens must equal the paged engine's, and the
+   prefill side's first decode and every decode-side step are held to
+   fresh prefills.  ``apply_logits`` over one served sequence is held to
+   fresh prefills at every position, and ``Engine.logprob_of`` of the
+   sequence must equal the sum of the gold tokens' log-softmax taken from
+   those fresh prefills within 1e-3 relative;
 4. the main paths, through ``repro_torch.launch.serve.run`` -- the
    decentralized protocol assigns 8 requests and two nodes serve them with
    full-width qwen3-8b (36 layers, bfloat16, random weights seeded per
@@ -60,7 +68,14 @@ Phases, each of which raises (exit code != 0) when it fails:
    int8 speculative engines (``--spec --kv-quant``); then [4f] the prefix
    cache on ``Engine(paged=True, prefix_cache=True)`` with fp and int8
    pages, whose second wave must hit the cache and whose warm prefill
-   verifies more than 16 tokens a row.  Every request must return tokens,
+   verifies more than 16 tokens a row; [4g] on disaggregated
+   prefill/decode pairs (``--disagg``), where each node's handoffs must
+   cover every request that decoded past its first token, every handoff
+   must carry 147456 bytes (qwen3-8b's K and V in bf16) per valid token,
+   and a third, untimed run with ``trace=`` must write a Chrome trace
+   with both clock domains, whose sim-clock stages add up to each
+   request's simulated latency within 1e-9 s and which holds one
+   ``disagg.handoff`` event per handoff.  Every request must return tokens,
    and every kernel of the phase's path must have launched: the launch
    counts are zeroed just before each run and read just after it, and the
    shapes, tables and lengths the run hands each kernel are recorded.
@@ -87,9 +102,10 @@ replaces, the serve phase it was measured in, its launches there, and its
 error and times at that phase's shapes (phase 5) beside the least time the
 card could take (``bound_ms``: the larger of the bytes it must move over
 3.35 TB/s and the operations it must do over the card's peak for their
-type), with ``vs_library`` and ``bound_share``.  The last line is ``{"ok": true, "device": ...}``.  Without a CUDA
-card, or outside a checkout of the repository, the script exits with an
-error before printing any result.
+type), with ``vs_library`` and ``bound_share``, and its launches in phases
+4f and 4g (``launches_4f``, ``launches_4g``).  The last line is ``{"ok":
+true, "device": ...}``.  Without a CUDA card, or outside a checkout of the
+repository, the script exits with an error before printing any result.
 """
 
 from __future__ import annotations
@@ -134,7 +150,7 @@ ENTRIES = {  # entry: (kernel in ops.KERNELS, head width, serve phase)
 # serve phase: (engine mode, int8 KV)
 PHASE_MODE = {"4": ("paged", False), "4b": ("slot", False),
               "4c": ("spec", False), "4d": ("paged", True),
-              "4e": ("spec", True)}
+              "4e": ("spec", True), "4g": ("disagg", False)}
 # (kernel, head width) pairs each serve phase's path must launch
 PATHS = {"4": {("flash_attention", 128), ("paged_decode", 128)},
          "4b": {("flash_attention", 128), ("flash_decode", 128)},
@@ -145,7 +161,8 @@ PATHS = {"4": {("flash_attention", 128), ("paged_decode", 128)},
                 ("flash_decode", 64), ("paged_verify_int8", 128)},
          "4f": {("flash_attention", 128), ("paged_decode", 128),
                 ("paged_verify", 128), ("paged_decode_int8", 128),
-                ("paged_verify_int8", 128)}}
+                ("paged_verify_int8", 128)},
+         "4g": {("flash_attention", 128), ("paged_decode", 128)}}
 KERNEL_OPS = {  # kernel: the ops entry point the model calls for it
     "flash_attention": "attention", "paged_decode": "paged_decode",
     "flash_decode": "decode", "paged_verify": "paged_verify",
@@ -927,8 +944,8 @@ def phase_consistency(n_layers: int):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import dense
-    from repro_torch.serving import Engine, GenRequest
+    from repro_torch.models import dense, registry
+    from repro_torch.serving import DisaggEngineExecutor, Engine, GenRequest
     from repro_torch.serving.sampling import masked_logits
     cfg = get_config("qwen3-8b").replace(dtype="float32", n_layers=n_layers)
     qcfg = cfg.replace(kv_quant=True)
@@ -965,26 +982,10 @@ def phase_consistency(n_layers: int):
             raise AssertionError(f"{what}: |{kind}| {diff:.3e} > "
                                  f"1e-3 * {scale:.3e}")
 
-    def serve(c, waves, warm=None, **kw):
-        """Serve ``waves`` (lists of prompts, one wave after the other) on
-        one engine; returns the requests, the decode or verify steps' live
-        rows, tokens and logits, and the engine.  With ``warm`` (a list),
-        each warm prefill's rows are appended to it with their logits."""
-        eng = Engine(c, params, max_batch=4, bucket=32, **kw)
-        if warm is not None:
-            orig_warm = eng._prefill_warm
-
-            def warm_recording(rows, hits):
-                orig_warm(rows, hits)
-                # a copy: the carried logits are overwritten in place
-                warm.extend(([int(t) for t in r.tokens],
-                             eng._logits[i, 0].float().cpu().clone())
-                            for i, r in rows)
-
-            eng._prefill_warm = warm_recording
-        steps = []
-        attr = ("_verify" if "spec_draft" in kw else
-                "_decode_paged" if kw.get("paged") else "_decode")
+    def recorder(eng, attr, steps):
+        """Wrap ``eng``'s decode or verify forward ``attr`` so that each
+        step appends its live rows' fed histories, tokens and logits to
+        ``steps``."""
         fwd = getattr(eng, attr)
 
         def recording(p, c_, cache, tok):
@@ -1000,6 +1001,28 @@ def phase_consistency(n_layers: int):
             return logits, cache
 
         setattr(eng, attr, recording)
+
+    def serve(c, waves, warm=None, **kw):
+        """Serve ``waves`` (lists of prompts, one wave after the other) on
+        one engine; returns the requests, the decode or verify steps' live
+        rows, tokens and logits, and the engine.  With ``warm`` (a list),
+        each warm prefill's rows are appended to it with their logits."""
+        eng = Engine(c, params, max_batch=4, bucket=32, **kw)
+        steps = []
+        attr = ("_verify" if "spec_draft" in kw else
+                "_decode_paged" if kw.get("paged") else "_decode")
+        recorder(eng, attr, steps)
+        if warm is not None:
+            orig_warm = eng._prefill_warm
+
+            def warm_recording(rows, hits):
+                orig_warm(rows, hits)
+                # a copy: the carried logits are overwritten in place
+                warm.extend(([int(t) for t in r.tokens],
+                             eng._logits[i, 0].float().cpu().clone())
+                            for i, r in rows)
+
+            eng._prefill_warm = warm_recording
         reqs = []
         for w, wave in enumerate(waves):
             batch = [GenRequest(rid=f"c{w}.{i}", max_new=8, tokens=p)
@@ -1068,6 +1091,68 @@ def phase_consistency(n_layers: int):
     if not results["paged"] == results["slot"] == results["spec"]:
         raise AssertionError(f"greedy streams differ: {results}")
     log("  paged, slot and agreeing-spec greedy tokens identical")
+
+    # the disaggregated pair over the same params: the prefill engine's
+    # first decode and every decode-engine step held to fresh prefills,
+    # and its greedy tokens identical to the paged engine's
+    pair = DisaggEngineExecutor(
+        Engine(cfg, params, max_batch=4, bucket=32, paged=True),
+        Engine(cfg, params, max_batch=4, bucket=32, seed=1000, paged=True))
+    side_steps = {"prefill": [], "decode": []}
+    for side, steps in side_steps.items():
+        recorder(getattr(pair, side), "_decode_paged", steps)
+    reqs = [GenRequest(rid=f"d{i}", max_new=8, tokens=p)
+            for i, p in enumerate(prompts)]
+    pair.bind(None, lambda r, started, first: None)
+    pending = list(reqs)
+    while pending or pair.has_work():
+        while pending and pair.admit(pending[0]):
+            pending.pop(0)
+        pair.step()
+    results["disagg"] = [r.result.tolist() for r in reqs]
+    for side, steps in side_steps.items():
+        for key, got in by_history(steps).items():
+            held(f"disagg {side}", got, fresh(list(key)),
+                 f"disagg {side} step after {len(key)} tokens")
+    if results["disagg"] != results["paged"]:
+        raise AssertionError(f"disagg greedy tokens differ from paged: "
+                             f"{results['disagg']} != {results['paged']}")
+    st = pair.engine_stats()
+    if not side_steps["decode"] or st.handoffs < len(reqs):
+        raise AssertionError(f"disagg pair: {st.handoffs} handoffs, "
+                             f"{len(side_steps['decode'])} decode steps")
+    log(f"  disagg: {st.handoffs} handoffs ({st.handoff_bytes} B), tokens "
+        f"identical to paged; {len(side_steps['prefill'])} prefill-side and "
+        f"{len(side_steps['decode'])} decode-side steps held to fresh "
+        f"prefills: worst |diff| / max|logit| = prefill side "
+        f"{worst.get('disagg prefill', 0.0):.2e}, decode side "
+        f"{worst['disagg decode']:.2e} (limit 1e-3)")
+    del pair
+
+    # the full-sequence forward at every position of one served sequence,
+    # and the sequence's log-likelihood (the duel judges' logprob_of)
+    seq = [int(t) for t in prompts[0]] + results["paged"][0]
+    full = registry.apply_logits(params, cfg, {"tokens": torch.tensor(
+        [seq[:-1]], device="cuda")})[0].float().cpu()
+    gold = []
+    for t in range(len(seq) - 1):
+        want = fresh(seq[: t + 1])
+        held("apply_logits", full[t], want,
+             f"apply_logits at position {t}")
+        gold.append(float(torch.log_softmax(want.double(), -1)[seq[t + 1]]))
+    lp = Engine(cfg, params, max_batch=4, bucket=32).logprob_of(
+        np.asarray(seq, np.int32))
+    want_lp = sum(gold)
+    rel = abs(lp - want_lp) / abs(want_lp)
+    worst["logprob_of"] = rel
+    if rel > 1e-3:
+        raise AssertionError(f"logprob_of {lp} != {want_lp} from fresh "
+                             f"prefills (relative {rel:.2e} > 1e-3)")
+    log(f"  apply_logits at all {len(seq) - 1} positions of a "
+        f"{len(seq)}-token sequence held to fresh prefills: worst |diff| / "
+        f"max|logit| = {worst['apply_logits']:.2e} (limit 1e-3); "
+        f"logprob_of {lp:.6f} vs {want_lp:.6f} summed from fresh prefills "
+        f"(relative {rel:.2e}, limit 1e-3)")
     if not (results["int8 paged"] == results["int8 slot"]
             == results["int8 spec"]):
         raise AssertionError(f"int8 greedy streams differ: {results}")
@@ -1194,17 +1279,20 @@ def phase_serve(phase, params, first=None):
               spec_k=SPEC_K, params_fn=lambda i, c, d: params[i])
     seen = _seen()
     widths = collections.Counter()
+    handoffs = []
     restore = recording_ops(ops, seen, widths)
+    unrecord = recording_handoffs(handoffs)
     try:
         ops.reset_launch_counts()
         out = serve.run(cfg, **kw)
         launches = ops.launch_counts()
     finally:
         restore()
+        unrecord()
     label = ("int8 " if quant else "") + mode
     check_launches(label, launches, widths, phase)
-    mine = {e: widths[k, d] for e, (k, d, p) in ENTRIES.items()
-            if p == phase}
+    mine = {e: widths[k, d] for e, (k, d, _) in ENTRIES.items()
+            if (k, d) in PATHS[phase]}
     if set(out["results"]) != {f"r{i}" for i in range(8)}:
         raise AssertionError(f"requests without a result: {out['results']}")
     for rid, toks in out["results"].items():
@@ -1231,6 +1319,11 @@ def phase_serve(phase, params, first=None):
                 f"{'verify' if mode == 'spec' else 'decode'} steps at "
                 f"{steps[nid]['decode_ms']:.2f} ms (weight-streaming floor "
                 f"{floor_ms:.2f} ms)")
+        if mode == "disagg":
+            steps[nid].update(handoffs=st.handoffs,
+                              handoff_mb=st.handoff_bytes / 1e6)
+            line += (f"; {st.handoffs} KV handoffs "
+                     f"({st.handoff_bytes / 1e6:.3f} MB)")
         if mode == "spec":
             steps[nid].update(
                 spec_steps=st.spec_steps, spec_drafted=st.spec_drafted,
@@ -1256,7 +1349,11 @@ def phase_serve(phase, params, first=None):
             f"{total} (bf16: verify and decode GEMMs may round differently"
             f"{', and int8 pages hold other values' if quant else ''}; "
             f"exact equality is held in fp32 in phase 3)")
+    if mode == "disagg":
+        extra["handoffs"] = check_handoffs(out, handoffs)
     profile = profile_rerun(lambda: serve.run(cfg, verbose=False, **kw), out)
+    if mode == "disagg":
+        extra["trace"] = traced_rerun(serve, cfg, kw)
     log(f"serve_profile_{phase} " + json.dumps(dict(
         mode=label, steps=steps, weights_gb=wbytes / 1e9,
         step_floor_ms=floor_ms, tok_per_s=out["tok_per_s"],
@@ -1264,6 +1361,97 @@ def phase_serve(phase, params, first=None):
         launches_by_width={f"{k}@{d}": n for (k, d), n in widths.items()},
         **extra, **profile)))
     return out, mine, seen
+
+
+def recording_handoffs(handoffs):
+    """Note every KV handoff the engines extract (request, length, cached
+    tokens, bytes) in ``handoffs``; returns a function that puts
+    ``Engine.extract_handoffs`` back."""
+    from repro_torch.serving import Engine
+    orig = Engine.extract_handoffs
+
+    def extract(self, cached_tokens_fn=None):
+        out = orig(self, cached_tokens_fn)
+        handoffs.extend(dict(rid=h.req.rid, length=h.length,
+                             cached_tokens=h.cached_tokens,
+                             kv_bytes=h.kv_bytes, who=self.owner)
+                        for h in out)
+        return out
+
+    Engine.extract_handoffs = extract
+
+    def restore():
+        Engine.extract_handoffs = orig
+    return restore
+
+
+def check_handoffs(out, handoffs) -> dict:
+    """[4g] Each node handed off at least every request that decoded past
+    its first token (those cannot have finished on the prefill side), and
+    every handoff carries ``_KV_BYTES_PER_TOKEN`` bytes per valid token
+    (qwen3-8b bf16: 2 x 36 layers x 8 kv heads x 128 x 2 bytes), the
+    prompt and the first token at least."""
+    from repro_torch.sim.servicemodel import _KV_BYTES_PER_TOKEN
+    by_node = collections.Counter(h["who"] for h in handoffs)
+    for nid, st in out["stats"].items():
+        decoded = sum(1 for rid in out["assigned"][nid]
+                      if len(out["results"][rid]) > 1)
+        if not (st.handoffs == by_node[nid] >= decoded):
+            raise AssertionError(f"{nid}: {st.handoffs} handoffs counted, "
+                                 f"{by_node[nid]} recorded, {decoded} "
+                                 f"requests decoded past their first token")
+    for h in handoffs:
+        if h["cached_tokens"] or h["length"] < 25 or \
+                h["kv_bytes"] != _KV_BYTES_PER_TOKEN * h["length"]:
+            raise AssertionError(f"handoff {h}: expected "
+                                 f"{_KV_BYTES_PER_TOKEN} B x length >= 25")
+    nbytes = sum(h["kv_bytes"] for h in handoffs)
+    lengths = sorted({h["length"] for h in handoffs})
+    log(f"  {len(handoffs)} handoffs of {lengths} tokens, {nbytes} B in "
+        f"all: {_KV_BYTES_PER_TOKEN} B per token each")
+    return dict(count=len(handoffs), bytes=nbytes,
+                bytes_per_token=_KV_BYTES_PER_TOKEN)
+
+
+def traced_rerun(serve, cfg, kw) -> dict:
+    """[4g] The scenario once more, untimed, with ``trace=`` a temporary
+    file: the file must load with the sim-time and wall-time processes,
+    each request's sim-clock stages must add up to its simulated latency
+    within 1e-9 s, and one ``disagg.handoff`` event must be recorded per
+    handoff."""
+    import tempfile
+    from repro_torch.obs import _SIM, latency_breakdown
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        out = serve.run(cfg, verbose=False, trace=str(path), **kw)
+        payload = json.loads(path.read_text())
+    procs = {e["args"]["name"] for e in payload["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    if procs != {"sim-time", "wall-time"}:
+        raise AssertionError(f"trace processes {procs}")
+    spans = out["spans"]
+    stages = latency_breakdown([s for s in spans if s.clock == _SIM])
+    worst = 0.0
+    for rid, latency in out["latency"].items():
+        err = abs(sum(stages[rid]["stages"].values()) - latency)
+        worst = max(worst, err)
+        if err > 1e-9:
+            raise AssertionError(f"{rid}: sim stages sum to "
+                                 f"{sum(stages[rid]['stages'].values())} s, "
+                                 f"latency {latency} s")
+    events = sum(1 for s in spans
+                 if s.name == "disagg.handoff" and s.clock != _SIM)
+    handoffs = sum(st.handoffs for st in out["stats"].values())
+    if events != handoffs:
+        raise AssertionError(f"{events} disagg.handoff events for "
+                             f"{handoffs} handoffs")
+    log(f"  traced rerun: {len(spans)} spans, "
+        f"{len(payload['traceEvents'])} trace events; sim stages "
+        f"reconstruct all {len(out['latency'])} latencies (worst error "
+        f"{worst:.1e} s); {events} disagg.handoff events for {handoffs} "
+        f"handoffs")
+    return dict(spans=len(spans), events=len(payload["traceEvents"]),
+                worst_latency_error_s=worst, handoff_events=events)
 
 
 def port_kernel_of(name: str):
@@ -1474,6 +1662,10 @@ def main() -> int:
     t_all = time.perf_counter()
     logs = _build.build(force=True)
     build_s = time.perf_counter() - t_all
+
+    def at() -> str:
+        return f" (at {time.perf_counter() - t_all:.1f}s)"
+
     log(f"[1] built {list(_build.SOURCES)} in {build_s:.1f}s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     for name, r in ptxas_report(logs, ("flash_wgmma_kernel", "verify_mma_kernel",
@@ -1484,10 +1676,10 @@ def main() -> int:
         log(f"  ptxas {name}: {r}")
     for name, counts in sass_check(_build.BUILD_DIR).items():
         log(f"  sass {name}: {counts}")
-    log("[2] kernels vs their plain versions")
+    log("[2] kernels vs their plain versions" + at())
     phase_kernels()
     log("[3] model consistency: paged, slot and verify logits vs fresh "
-        "prefills")
+        "prefills" + at())
     phase_consistency(n_layers=36)
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -1495,24 +1687,31 @@ def main() -> int:
     params = [serve.seeded_params(i, cfg, torch.device("cuda"))
               for i in range(2)]
     seen, launches = {}, {}
-    log("[4] serve on paged engines")
+    log("[4] serve on paged engines" + at())
     paged_out, launches["4"], seen["4"] = phase_serve("4", params)
-    log("[4b] serve on slot engines (the driver's default)")
+    log("[4b] serve on slot engines (the driver's default)" + at())
     _, launches["4b"], seen["4b"] = phase_serve("4b", params)
-    log("[4c] serve on speculative paged engines, draft cfg.draft()")
+    log("[4c] serve on speculative paged engines, draft cfg.draft()"
+        + at())
     _, launches["4c"], seen["4c"] = phase_serve("4c", params,
                                                 first=paged_out)
-    log("[4d] serve on int8 paged engines (--kv-quant)")
+    log("[4d] serve on int8 paged engines (--kv-quant)" + at())
     _, launches["4d"], seen["4d"] = phase_serve("4d", params,
                                                 first=paged_out)
-    log("[4e] serve on int8 speculative engines (--spec --kv-quant)")
+    log("[4e] serve on int8 speculative engines (--spec --kv-quant)"
+        + at())
     _, launches["4e"], seen["4e"] = phase_serve("4e", params,
                                                 first=paged_out)
-    log("[4f] the prefix cache, fp and int8 pages")
+    log("[4f] the prefix cache, fp and int8 pages" + at())
     launches_4f, seen["4f"] = phase_prefix(params)
+    log("[4g] serve on disaggregated prefill/decode pairs (--disagg)"
+        + at())
+    _, launches["4g"], seen["4g"] = phase_serve("4g", params,
+                                                first=paged_out)
     del params
     torch.cuda.empty_cache()
-    log("[5] kernels vs their plain versions at the serve phases' shapes")
+    log("[5] kernels vs their plain versions at the serve phases' shapes"
+        + at())
     main_cases = phase_main_shapes(seen)
     kernels = []
     for entry, (kernel, d, phase) in ENTRIES.items():
@@ -1522,6 +1721,7 @@ def main() -> int:
             replaces=meta["replaces"], head_dim=d, phase=phase,
             launches=launches[phase][entry],
             launches_4f=launches_4f[kernel] if d == 128 else 0,
+            launches_4g=launches["4g"].get(entry, 0),
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -13,7 +13,13 @@ backs the nodes with paged-KV engines and ``--spec`` with speculative
 paged engines whose draft is ``cfg.draft()``.  ``--kv-quant`` stores the
 KV as int8 with bf16 per-(token, head) scales (``cfg.kv_quant``); it
 implies paged engines, and with ``--spec`` the target's pages are int8
-while the draft keeps fp caches.  On the card (the default)
+while the draft keeps fp caches.  ``--disagg`` backs each node with a
+disaggregated pair (``DisaggEngineExecutor``): a prefill engine and a
+decode engine, sharing the node's weights, joined by page-granular KV
+handoff.  ``--trace PATH`` records the protocol sim's and the replay's
+lifecycle spans into one stream, writes them to PATH as a Perfetto
+(Chrome ``trace_event``) JSON and prints the slowest requests' latency
+breakdown.  On the card (the default)
 the nodes serve the full-width model in bfloat16, each with its own seeded
 random weights; on the CPU (``--device cpu``) they serve the reduced
 float32 config the reference driver runs, with the kernels' plain
@@ -22,9 +28,7 @@ versions::
     PYTHONPATH=src python -m repro_torch.launch.serve --nodes 2 --requests 8 --max-new 8
     PYTHONPATH=src python -m repro_torch.launch.serve --spec --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --spec --kv-quant
-
-``--disagg`` and ``--trace`` are not ported yet: the driver stops with an
-error naming their ROADMAP item.
+    PYTHONPATH=src python -m repro_torch.launch.serve --disagg --trace t.json
 """
 
 from __future__ import annotations
@@ -39,15 +43,17 @@ from repro_torch.configs import get_config
 from repro_torch.core import DuelParams, Network, Node, NodePolicy
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
-from repro_torch.obs import wall_now
-from repro_torch.serving import (Engine, EngineExecutor, GenRequest,
+from repro_torch.obs import (Tracer, breakdown_report, set_tracer, wall_now,
+                             write_chrome_trace)
+from repro_torch.serving import (DisaggEngineExecutor, Engine,
+                                 EngineExecutor, GenRequest,
                                  SpecEngineExecutor)
 from repro_torch.sim import make_profile
 from repro_torch.sim.workload import Request
 
 ParamsFn = Callable[[int, ModelConfig, torch.device], Dict]
 DraftParamsFn = Callable[[ModelConfig, torch.device], Dict]
-_MODES = ("slot", "paged", "spec")
+_MODES = ("slot", "paged", "spec", "disagg")
 
 
 def require_device(device: str | torch.device) -> torch.device:
@@ -78,13 +84,15 @@ def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
         device: str | torch.device = "cuda", mode: str = "slot",
         spec_k: int = 4, params_fn: Optional[ParamsFn] = None,
         draft_params_fn: Optional[DraftParamsFn] = None,
-        verbose: bool = True) -> Dict:
-    """Run the scenario on ``mode`` engines (slot, paged or spec) and
-    return what it produced: the protocol's assignment (node -> request
-    ids), the credit balances, every request's tokens, per-node engine
-    stats (and, with spec, each node's ``expected_tokens_per_step``), and
-    the replay's wall time and tokens/s (the replay ends in a device
-    synchronisation)."""
+        trace: Optional[str] = None, verbose: bool = True) -> Dict:
+    """Run the scenario on ``mode`` engines (slot, paged, spec or disagg)
+    and return what it produced: the protocol's assignment (node ->
+    request ids), the credit balances, every request's tokens and its
+    simulated latency, per-node engine stats (and, with spec, each node's
+    ``expected_tokens_per_step``), the replay's wall time and tokens/s
+    (the replay ends in a device synchronisation), and the recorded spans
+    (``trace``: the path the Perfetto trace is written to; no spans
+    without it)."""
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r} not in {_MODES}")
     dev = require_device(device)
@@ -98,7 +106,6 @@ def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
         draft_cfg = cfg.draft()
         spec_draft = (draft_cfg, (draft_params_fn or seeded_draft_params)(
             draft_cfg, dev))
-    prompt_len = 24
     rng = np.random.default_rng(seed)
     net = Network(mode="decentralized", seed=seed,
                   duel=DuelParams(p_d=duel_rate, k_judges=1),
@@ -106,11 +113,20 @@ def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
     executors: Dict[str, EngineExecutor] = {}
     for i in range(nodes):
         nid = f"node{i+1}"
-        engine = Engine(cfg, params_fn(i, cfg, dev), max_batch=4, bucket=32,
-                        seed=i, paged=mode != "slot", spec_draft=spec_draft,
-                        spec_k=spec_k)
-        executors[nid] = (SpecEngineExecutor(engine) if mode == "spec"
-                          else EngineExecutor(engine))
+        params = params_fn(i, cfg, dev)
+        if mode == "disagg":
+            # both phase engines serve from the node's one set of weights
+            executors[nid] = DisaggEngineExecutor(
+                Engine(cfg, params, max_batch=4, bucket=32, seed=i,
+                       paged=True),
+                Engine(cfg, params, max_batch=4, bucket=32, seed=1000 + i,
+                       paged=True))
+        else:
+            engine = Engine(cfg, params, max_batch=4, bucket=32, seed=i,
+                            paged=mode != "slot", spec_draft=spec_draft,
+                            spec_k=spec_k)
+            executors[nid] = (SpecEngineExecutor(engine) if mode == "spec"
+                              else EngineExecutor(engine))
         executors[nid].owner = nid     # real-engine spans carry the node id
         prof = make_profile("qwen3-8b", "RTX3090", "sglang",
                             quality=0.4 + 0.15 * i)
@@ -118,6 +134,32 @@ def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
                          offload_queue_threshold=0, target_utilization=0.9)
         net.add_node(Node(nid, prof, policy=pol))
 
+    # with a trace, the protocol sim (sim clock) and the real-engine
+    # replay (wall clock) record into one stream; the exporter keeps the
+    # two clock domains apart as separate Perfetto processes
+    tracer = Tracer() if trace else None
+    old_tracer = set_tracer(tracer) if tracer else None
+    try:
+        out = _scenario(cfg, net, executors, rng, dev, requests, max_new,
+                        say)
+    finally:
+        if tracer:
+            set_tracer(old_tracer)
+    spans = tracer.spans if tracer else []
+    if trace:
+        payload = write_chrome_trace(spans, trace)
+        say(breakdown_report(spans, limit=3))
+        say(f"wrote {len(spans)} spans ({len(payload['traceEvents'])} "
+            f"events) to {trace}")
+    return {**out, "spans": spans}
+
+
+def _scenario(cfg: ModelConfig, net: Network,
+              executors: Dict[str, EngineExecutor], rng, dev: torch.device,
+              requests: int, max_new: int, say) -> Dict:
+    """Run the protocol over the requests, replay its assignment on the
+    real engines and report what ``run`` returns (spans aside)."""
+    prompt_len = 24
     # every user request goes to node1 (the hot node)
     prompts = [rng.integers(2, cfg.vocab_size, size=prompt_len)
                .astype(np.int32) for _ in range(requests)]
@@ -157,7 +199,10 @@ def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
         spec = (f", spec accepted {st.spec_accepted}/{st.spec_drafted} "
                 f"drafts over {st.spec_steps} verifies "
                 f"(E[tok/step] {ld.expected_tokens_per_step:.2f})"
-                if mode == "spec" else "")
+                if isinstance(ex, SpecEngineExecutor) else
+                f", {st.handoffs} KV handoffs "
+                f"({st.handoff_bytes / 1e6:.1f} MB)"
+                if isinstance(ex, DisaggEngineExecutor) else "")
         say(f"  {nid}: served {len(done)} requests "
             f"({st.decode_tokens} decode tokens in {st.decode_steps} steps; "
             f"load: {ld.active_streams} active / {ld.queued_streams} queued, "
@@ -185,6 +230,8 @@ def run(cfg: ModelConfig, *, nodes: int = 4, requests: int = 24,
         "wall_s": wall_s,
         "tok_per_s": total_tokens / wall_s if wall_s > 0 else 0.0,
         "slo_attainment": m.slo_attainment(),
+        "latency": {c.rid: c.latency for c in m.completed
+                    if not c.is_duel_extra},
     }
 
 
@@ -207,28 +254,30 @@ def main(argv=None) -> int:
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft tokens proposed per verify step")
     ap.add_argument("--disagg", action="store_true",
-                    help="not ported yet (ROADMAP Queue A item 5)")
+                    help="back nodes with disaggregated prefill/decode "
+                         "engine pairs joined by page-granular KV handoff "
+                         "(DESIGN.md §6.1-disagg; implies paged)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="store KV as int8 with per-token-per-head scale "
                          "pools: half the bytes per resident token, so the "
                          "same budget holds 2x the pages (DESIGN.md "
                          "§6.1-paged; implies paged)")
     ap.add_argument("--trace", metavar="PATH",
-                    help="not ported yet (ROADMAP Queue A item 5)")
+                    help="record lifecycle spans (DESIGN.md §Observability) "
+                         "for the protocol sim AND the real-engine replay, "
+                         "write a Perfetto/Chrome trace_event JSON to PATH, "
+                         "and print the per-request latency breakdown")
     ap.add_argument("--device", default="cuda",
                     help="cuda: the full-width model in bfloat16 on the "
                          "hand-written kernels; cpu: the reduced float32 "
                          "config on their plain versions")
     args = ap.parse_args(argv)
+    if args.spec and args.disagg:
+        ap.error("--spec and --disagg are separate backends; pick one")
     if args.kv_quant and args.disagg:
         ap.error("--kv-quant is colocated-only: KV handoffs carry fp "
                  "pages (DESIGN.md §6.1-paged)")
-    for flag, what in (("disagg", "disaggregated prefill/decode engines"),
-                       ("trace", "lifecycle tracing and obs/export.py")):
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet ({what}; "
-                     f"ROADMAP Queue A item 5)")
-    mode = ("spec" if args.spec else
+    mode = ("spec" if args.spec else "disagg" if args.disagg else
             "paged" if args.paged or args.kv_quant else "slot")
     dev = require_device(args.device)
     cfg = get_config(args.arch)
@@ -238,7 +287,7 @@ def main(argv=None) -> int:
         cfg = cfg.replace(kv_quant=True)
     run(cfg, nodes=args.nodes, requests=args.requests, max_new=args.max_new,
         duel_rate=args.duel_rate, seed=args.seed, device=dev, mode=mode,
-        spec_k=args.spec_k)
+        spec_k=args.spec_k, trace=args.trace)
     return 0
 
 

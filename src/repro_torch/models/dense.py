@@ -1,8 +1,9 @@
 """Dense decoder-only transformer (the qwen3 family) on tensors.
 
-Port of the serving paths of ``repro.models.dense``: ``init``,
-right-padded ``prefill`` with ``last_positions``, the slot cache
-(``init_cache``, ``decode_step`` with (B,) lengths), the KV page pools
+Port of the serving paths of ``repro.models.dense``: ``init``, the
+full-sequence ``apply``, right-padded ``prefill`` with
+``last_positions``, the slot cache (``init_cache``, ``decode_step`` with
+(B,) lengths), the KV page pools
 (``init_paged_pools``, ``prefill_to_pages``, ``_scatter_pool_writes``),
 ``paged_decode_step`` and the speculative ``paged_verify_step``, each
 with its int8 form (``cfg.kv_quant``: int8 K/V plus bf16 per-(token, head)
@@ -127,6 +128,43 @@ def logits_of(params: Dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"]
 
 
+# ------------------------------------------------------------------ forward
+def _forward_blocks(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                    kvs: Optional[Dict[str, list]] = None) -> torch.Tensor:
+    """Embed ``tokens`` (B, S) and run every block over the whole sequence,
+    attention through the prefill kernel (causal, the config's window);
+    returns the hidden states (B, S, d) before the final norm.  With
+    ``kvs`` each layer's K/V (quantized with ``cfg.kv_quant``) are appended
+    to it by name.  ``prefill`` and ``apply`` share this loop."""
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
+        q, k, v = _project_qkv(lp, cfg, h, positions)
+        attn = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
+        x = _finish_block(lp, cfg, x, attn)
+        if kvs is None:
+            continue
+        out = {"k": k, "v": v}
+        if cfg.kv_quant:
+            out["k"], out["k_scale"] = kv_quantize(k)
+            out["v"], out["v_scale"] = kv_quantize(v)
+        for name, a in out.items():
+            kvs.setdefault(name, []).append(a)
+    return x
+
+
+def apply(params: Dict, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """Full-sequence forward: logits (B, S, padded_vocab) at every position
+    of ``batch["tokens"]`` (B, S), as the reference's ``apply`` returns
+    them.  The KV is not kept."""
+    x = _forward_blocks(params, cfg, batch["tokens"])
+    return logits_of(params, cm.apply_norm(x, params["final_norm"],
+                                           cfg.norm_type))
+
+
 # ------------------------------------------------------------------ prefill
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             capacity: Optional[int] = None,
@@ -145,25 +183,12 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     the fp k/v).
     """
     b, s = tokens.shape
-    x = params["embed"][tokens]
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
     if cfg.sliding_window is None:
         cap = max(s, capacity or s)
     else:
         cap = min(cfg.sliding_window, capacity or cfg.sliding_window)
     kvs: Dict[str, list] = {}
-    for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
-        q, k, v = _project_qkv(lp, cfg, h, positions)
-        attn = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
-        x = _finish_block(lp, cfg, x, attn)
-        out = {"k": k, "v": v}
-        if cfg.kv_quant:
-            out["k"], out["k_scale"] = kv_quantize(k)
-            out["v"], out["v_scale"] = kv_quantize(v)
-        for name, a in out.items():
-            kvs.setdefault(name, []).append(a)
+    x = _forward_blocks(params, cfg, tokens, kvs)
 
     def ring(a: torch.Tensor) -> torch.Tensor:
         # (L, B, S, Hkv, dh) -> (L, B, cap, Hkv, dh)

@@ -1,8 +1,10 @@
 """Family registry of the port: the uniform interface the engine calls.
 
 Port of ``repro.models.registry`` for the dense family's serving paths:
-slot decode, paged decode and the speculative paged verify.  The other
-families (moe, hybrid, ssm, audio, vlm) are ROADMAP Queue A item 7.
+the full-sequence forward (``apply_logits``), slot decode, paged decode
+and the speculative paged verify.  The other families (moe, hybrid, ssm,
+audio, vlm) are ROADMAP Queue A item 7; ``apply_with_aux`` waits for
+training (item 8).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from repro_torch.models.config import ModelConfig
 
 class Family(NamedTuple):
     init: Callable              # (cfg, generator, device, dtype) -> params
+    apply: Callable             # (params, cfg, batch) -> (B, S, V) logits
     prefill: Callable           # -> (last logits, contiguous cache)
     decode_step: Callable       # (params, cfg, cache, token) -> logits, cache
     slot_decode: bool = False   # per-row cache lengths + prefill
@@ -30,7 +33,8 @@ class Family(NamedTuple):
 
 
 FAMILIES: Dict[str, Family] = {
-    "dense": Family(dense.init, dense.prefill, dense.decode_step,
+    "dense": Family(dense.init, dense.apply, dense.prefill,
+                    dense.decode_step,
                     slot_decode=True, paged_decode=dense.paged_decode_step,
                     init_paged_pools=dense.init_paged_pools,
                     prefill_to_pages=dense.prefill_to_pages,
@@ -49,3 +53,9 @@ def get_family(cfg: ModelConfig) -> Family:
 def init(cfg: ModelConfig, generator: torch.Generator,
          device: torch.device | str, dtype=None):
     return get_family(cfg).init(cfg, generator, device, dtype)
+
+
+def apply_logits(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """Full-sequence forward returning the logits at every position of
+    ``batch["tokens"]`` (the dense family has no auxiliary output)."""
+    return get_family(cfg).apply(params, cfg, batch)

@@ -1,8 +1,9 @@
 """repro_torch.obs — the port's own copy of ``repro.obs`` (DESIGN.md
-§Observability): lifecycle spans and the metrics registry.  The
-Perfetto exporter (``repro.obs.export``) comes with ``--trace``
-(ROADMAP Queue A item 5)."""
+§Observability): lifecycle spans, the metrics registry, and the
+Perfetto/Chrome trace exporter with the per-request latency breakdown."""
 
+from repro_torch.obs.export import (breakdown_report, latency_breakdown,
+                                    to_chrome_trace, write_chrome_trace)
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, get_registry,
                                      set_registry)
@@ -14,4 +15,6 @@ __all__ = [
     "set_tracer", "wall_now",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
     "set_registry",
+    "to_chrome_trace", "write_chrome_trace", "latency_breakdown",
+    "breakdown_report",
 ]

@@ -1,9 +1,11 @@
 """repro_torch.sim — the port's own copy of ``repro.sim``: the event loop,
 workloads, metrics, the analytic service model and the simulated
-executor that the protocol runs on."""
+executors (colocated, speculative, disaggregated) that the protocol
+runs on."""
 
 from repro_torch.sim.events import EventLoop
-from repro_torch.sim.executor import (Executor, ExecutorLoad,
+from repro_torch.sim.executor import (DisaggTokenBucketExecutor, Executor,
+                                      ExecutorLoad, SpecTokenBucketExecutor,
                                       TokenBucketExecutor)
 from repro_torch.sim.metrics import CompletedRequest, MetricsCollector
 from repro_torch.sim.servicemodel import BackendProfile, make_profile
@@ -13,6 +15,7 @@ from repro_torch.sim.workload import (ArrivalPhase, Request, WorkloadSpec,
 
 __all__ = [
     "EventLoop", "Executor", "ExecutorLoad", "TokenBucketExecutor",
+    "SpecTokenBucketExecutor", "DisaggTokenBucketExecutor",
     "CompletedRequest", "MetricsCollector",
     "BackendProfile", "make_profile", "ArrivalPhase", "Request",
     "WorkloadSpec", "make_requests", "two_phase", "uniform_phases",

@@ -55,12 +55,22 @@ Backends in this module:
   the node's prefix LRU skips that many pages of prefill work, and the
   load snapshot reports ``cache_hit_rate``/``resident_prefixes`` so
   dispatch can route toward warm caches.
-The speculative and disaggregated twins of ``repro.sim.executor``
-(``SpecTokenBucketExecutor``, ``DisaggTokenBucketExecutor``) come to the
-port with the engine slices that need them (ROADMAP Queue A item 5).
+* ``SpecTokenBucketExecutor``  — simulated speculative decoding (DESIGN.md
+  §6.1-spec): same admission as the plain bucket, but decode throughput is
+  scaled by the analytic acceptance model
+  ``spec_expected_tokens(alpha, k) / (1 + overhead)`` and the load
+  snapshot reports ``expected_tokens_per_step`` so dispatch can route
+  decode-heavy traffic toward speculation-enabled nodes.
+* ``DisaggTokenBucketExecutor`` — simulated disaggregated prefill/decode
+  (DESIGN.md §6.1-disagg): a prefill-only and a decode-only token bucket
+  joined by an explicit KV-transfer cost model
+  (``bytes = prompt_len * kv_bytes_per_token``, latency charged before
+  decode admission).  Admission reserves the prompt's decode-side pages
+  so every accepted transfer can eventually land.
 
-The real-engine counterpart (``EngineExecutor``, paged continuous batching
-over the PyTorch ``Engine``) lives in ``repro_torch.serving.executor``.
+The real-engine counterparts (``EngineExecutor``, ``SpecEngineExecutor``
+and ``DisaggEngineExecutor`` over the PyTorch ``Engine``) live in
+``repro_torch.serving.executor``.
 
 This module is the port's own copy of ``repro.sim.executor``: it imports
 nothing of ``repro``, and ``tests/test_torch_imports.py`` pins its
@@ -77,15 +87,19 @@ import math
 import zlib
 from abc import ABC, abstractmethod
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, List, Optional, Tuple
 
 from repro_torch.obs import get_tracer
 from repro_torch.sim.events import EventLoop
 from repro_torch.sim.servicemodel import (_DIGEST_STALENESS_TAU_S,
+                                          _KV_BYTES_PER_TOKEN,
                                           _KV_TOKENS_PER_STREAM,
                                           _PREFIX_FINGERPRINT_K,
-                                          _PREFIX_HIT_EMA_BETA,
+                                          _PREFIX_HIT_EMA_BETA, _SPEC_ALPHA0,
+                                          _SPEC_K, _SPEC_OVERHEAD,
+                                          _TRANSFER_BASE_S,
+                                          _TRANSFER_BYTES_PER_S,
                                           BackendProfile)
 
 # completion callback: (item, started_at, first_token_at) in sim/wall time
@@ -579,6 +593,330 @@ class TokenBucketExecutor(Executor):
                 tr.span("engine.decode", rid, self.owner, ft,
                         self._loop.now, output_tokens=s.output_total)
             self._on_complete(s.item, s.started_at, ft)
+
+    def _on_boundary(self) -> None:
+        self._pending_ev = None
+        self._advance()
+        self._reschedule()
+
+
+class SpecTokenBucketExecutor(TokenBucketExecutor):
+    """Simulated speculative-decoding backend (DESIGN.md §6.1-spec).
+
+    Identical to ``TokenBucketExecutor`` in admission (same KV token/page
+    budgets: speculation changes how fast decode *drains*, not how much KV
+    a resident stream holds), but decode throughput is scaled by the
+    analytic acceptance model: each target forward verifies ``spec_k``
+    draft tokens and emits ``spec_expected_tokens(alpha, k)`` tokens in
+    expectation, at ``1 + spec_overhead`` times the cost of a plain decode
+    step (the draft forwards).  Net per-stream decode rate::
+
+        decode_tps * spec_expected_tokens(alpha, k) / (1 + overhead) / share
+
+    ``spec_alpha`` defaults to the same ``_SPEC_ALPHA0`` constant that seeds
+    the real engine's online EMA, so a freshly booted sim node and a
+    freshly booted ``SpecEngineExecutor`` report the same
+    ``expected_tokens_per_step`` and make identical admission decisions
+    (agreement test in ``tests/test_spec.py``).
+    """
+
+    def __init__(self, profile: BackendProfile,
+                 page_size: Optional[int] = None, *,
+                 spec_k: int = _SPEC_K, spec_alpha: float = _SPEC_ALPHA0,
+                 spec_overhead: float = _SPEC_OVERHEAD) -> None:
+        super().__init__(profile, page_size)
+        self.spec_k = int(spec_k)
+        self.spec_alpha = float(spec_alpha)
+        self.spec_overhead = float(spec_overhead)
+
+    def expected_tokens_per_step(self) -> float:
+        return spec_expected_tokens(self.spec_alpha, self.spec_k)
+
+    def _speedup(self) -> float:
+        """Net decode-throughput multiplier (> 1 when speculation pays)."""
+        return self.expected_tokens_per_step() / (1.0 + self.spec_overhead)
+
+    def _decode_rate(self) -> float:
+        return super()._decode_rate() * self._speedup()
+
+    def load(self) -> ExecutorLoad:
+        return replace(super().load(),
+                       expected_tokens_per_step=self.expected_tokens_per_step())
+
+    def estimate(self, prompt_tokens: int, output_tokens: int) -> float:
+        # repro: allow[layering/service-time] the port's own copy of repro.sim/obs
+        return self.profile.service_time(prompt_tokens,
+                                         output_tokens / self._speedup(),
+                                         len(self._streams) + 1)
+
+
+class DisaggTokenBucketExecutor(Executor):
+    """Simulated disaggregated prefill/decode backend (DESIGN.md §6.1-disagg).
+
+    A prefill-only and a decode-only token bucket joined by an explicit
+    KV-transfer cost model.  A request moves through four stages:
+
+    1. **prefill** — prompt tokens at ``prefill_profile.prefill_tps``
+       (unshared, like the colocated backend); its prompt's KV occupies the
+       *prefill* pool.  The first output token is emitted by the prefill
+       side the instant prefill finishes (``first_token_at``), mirroring
+       the real ``DisaggEngineExecutor``.
+    2. **transfer** — the populated KV leaves the prefill pool (the copy
+       frees it) and crosses the wire:
+       ``transfer_s = transfer_base_s + prompt_len * kv_bytes_per_token /
+       transfer_bytes_per_s``.
+    3. **handoff queue** — landed transfers wait FIFO for decode-side
+       admission (head-of-line blocking keeps sim and engine agreement
+       deterministic).
+    4. **decode** — output tokens at ``profile.decode_tps / share`` with
+       the share recomputed on every decode-membership change, exactly as
+       in ``TokenBucketExecutor``.
+
+    Admission gates on **both** pools: the prompt's pages (tokens) must fit
+    the free prefill pool next to the prompts currently prefilling, and its
+    decode-side pages must fit the decode pool after subtracting the
+    reservations of every earlier-admitted stream still staging (prefill /
+    transfer / handoff) — so every accepted transfer can eventually land
+    (DistServe-style decode-capacity reservation).  With ``page_size`` set
+    both gates use ``paged_admit_ok``, the same rule the real engines
+    apply, so sim and engine admission decisions agree on identical
+    budgets.
+
+    Like the colocated ``TokenBucketExecutor``, the sim does not model
+    decode-side preemption: landing charges prompt pages only, and a
+    stream's page holdings then grow with decode progress, so the decode
+    pool can transiently over-occupy under pressure where the real engine
+    would preempt — that shows up as zero decode headroom (clamped), not
+    as an error.
+    """
+
+    def __init__(self, profile: BackendProfile,
+                 prefill_profile: Optional[BackendProfile] = None, *,
+                 page_size: Optional[int] = None,
+                 kv_bytes_per_token: int = _KV_BYTES_PER_TOKEN,
+                 transfer_bytes_per_s: float = _TRANSFER_BYTES_PER_S,
+                 transfer_base_s: float = _TRANSFER_BASE_S) -> None:
+        self.profile = profile                       # decode side
+        self.prefill_profile = prefill_profile or profile
+        self.decode_budget = int(getattr(profile, "kv_token_budget", 0)
+                                 or profile.max_concurrency
+                                 * _KV_TOKENS_PER_STREAM)
+        self.prefill_budget = int(
+            getattr(self.prefill_profile, "kv_token_budget", 0)
+            or self.prefill_profile.max_concurrency * _KV_TOKENS_PER_STREAM)
+        self.page_size = page_size
+        self.decode_pages_total = (self.decode_budget // page_size
+                                   if page_size else 0)
+        self.prefill_pages_total = (self.prefill_budget // page_size
+                                    if page_size else 0)
+        self.kv_bytes_per_token = kv_bytes_per_token
+        self.transfer_bytes_per_s = transfer_bytes_per_s
+        self.transfer_base_s = transfer_base_s
+        self._prefill: List[_Stream] = []
+        self._transfers: List[_Stream] = []    # on the wire
+        self._handoffs: List[_Stream] = []     # landed, awaiting admission
+        self._decode: List[_Stream] = []
+        self._handoff_bytes = 0                # cumulative KV bytes on the wire
+        self._last_t = 0.0
+        self._pending_ev = None
+        self._loop: Optional[EventLoop] = None
+        self._on_complete: Optional[CompletionFn] = None
+
+    def transfer_s(self, prompt_tokens: int) -> float:
+        """Wire time for one handoff: base cost + KV bytes over the link."""
+        return (self.transfer_base_s + max(1, prompt_tokens)
+                * self.kv_bytes_per_token / self.transfer_bytes_per_s)
+
+    # ------------------------------------------------------------- interface
+    @property
+    def n_active(self) -> int:
+        return len(self._prefill) + len(self._decode)
+
+    def _staging(self) -> List[_Stream]:
+        """Streams admitted but not yet decoding — they hold decode-side
+        reservations (prompt pages) so their transfer can always land."""
+        return self._prefill + self._transfers + self._handoffs
+
+    def _decode_pages_used(self) -> int:
+        return sum(pages_for(s.tokens_held(), self.page_size)
+                   for s in self._decode)
+
+    def _prefill_pages_used(self) -> int:
+        return sum(pages_for(s.prompt_total, self.page_size)
+                   for s in self._prefill)
+
+    def admit(self, item: Any) -> bool:
+        qr = item
+        self._advance()
+        p, o = qr.req.prompt_tokens, qr.req.output_tokens
+        staging = self._staging()
+        if self.page_size:
+            pre_free = self.prefill_pages_total - self._prefill_pages_used()
+            if not paged_admit_ok(pre_free, p, self.page_size,
+                                  resident=bool(self._prefill)):
+                return False
+            reserved = sum(pages_for(s.prompt_total, self.page_size)
+                           for s in staging)
+            free_eff = (self.decode_pages_total - self._decode_pages_used()
+                        - reserved)
+            if not paged_admit_ok(free_eff, p, self.page_size,
+                                  resident=bool(self._decode)
+                                  or bool(staging)):
+                return False
+        else:
+            pre_used = sum(s.prompt_total for s in self._prefill)
+            if self._prefill and pre_used + max(1, p) > self.prefill_budget:
+                return False
+            kv = max(1, p) + max(1, o)
+            used = sum(s.kv_tokens for s in self._decode)
+            reserved = sum(s.kv_tokens for s in staging)
+            if ((self._decode or staging)
+                    and used + reserved + kv > self.decode_budget):
+                return False
+        self._prefill.append(_Stream(qr, p, o, self._loop.now))
+        self._reschedule()
+        return True
+
+    def load(self) -> ExecutorLoad:
+        self._advance()
+        wire = self._transfers + self._handoffs
+        if self.page_size:
+            pre_used = self._prefill_pages_used() * self.page_size
+            pre_budget = self.prefill_pages_total * self.page_size
+            pages_used = self._decode_pages_used()
+            kv_used = pages_used * self.page_size
+            kv_budget = self.decode_pages_total * self.page_size
+        else:
+            pre_used = sum(s.prompt_total for s in self._prefill)
+            pre_budget = self.prefill_budget
+            pages_used = 0
+            kv_used = sum(s.kv_tokens for s in self._decode)
+            kv_budget = self.decode_budget
+        return ExecutorLoad(
+            active_streams=len(self._prefill) + len(self._decode),
+            queued_streams=0,
+            pending_prefill_tokens=int(sum(s.prompt_left
+                                           for s in self._prefill)),
+            pending_decode_tokens=int(sum(s.output_left for s in self._decode)
+                                      + sum(s.output_total for s in wire)),
+            kv_used=kv_used,
+            kv_budget=kv_budget,
+            pages_used=pages_used,
+            pages_total=self.decode_pages_total,
+            prefill_kv_used=pre_used,
+            prefill_kv_budget=pre_budget,
+            transfer_inflight=len(wire),
+            handoff_bytes=self._handoff_bytes)
+
+    def estimate(self, prompt_tokens: int, output_tokens: int) -> float:
+        share = max(1.0, (len(self._decode) + 1) / self.profile.saturation)
+        return (prompt_tokens / self.prefill_profile.prefill_tps
+                + self.transfer_s(prompt_tokens)
+                + output_tokens / (self.profile.decode_tps / share))
+
+    # -------------------------------------------------------------- dynamics
+    def _decode_rate(self) -> float:
+        share = max(1.0, len(self._decode) / self.profile.saturation)
+        return self.profile.decode_tps / share
+
+    def _advance(self) -> None:
+        now = self._loop.now
+        dt = now - self._last_t
+        self._last_t = now
+        if dt <= 0.0:
+            return
+        for s in self._prefill:
+            s.prompt_left -= self.prefill_profile.prefill_tps * dt
+        if self._decode:
+            dec = self._decode_rate()
+            for s in self._decode:
+                s.output_left -= dec * dt
+
+    def _admit_decode(self) -> None:
+        """Land waiting handoffs FIFO while the decode pool takes them."""
+        moved = False
+        while self._handoffs:
+            s = self._handoffs[0]
+            if self.page_size:
+                free = self.decode_pages_total - self._decode_pages_used()
+                if not paged_admit_ok(free, s.prompt_total, self.page_size,
+                                      resident=bool(self._decode)):
+                    break
+            else:
+                used = sum(d.kv_tokens for d in self._decode)
+                if self._decode and used + s.kv_tokens > self.decode_budget:
+                    break
+            self._handoffs.pop(0)
+            s.decoding = True
+            self._decode.append(s)
+            moved = True
+        if moved:
+            self._reschedule()
+
+    def _on_transfer_landed(self, s: _Stream) -> None:
+        self._advance()
+        self._transfers.remove(s)
+        self._handoffs.append(s)
+        tr = get_tracer()
+        if tr.enabled:
+            # the wire leg: transfer starts the instant prefill finishes
+            # (first_token_at) and lands now (DESIGN.md §Observability)
+            rid = getattr(getattr(s.item, "req", None), "rid", "")
+            tr.span("disagg.handoff", rid, self.owner,
+                    s.first_token_at if s.first_token_at is not None
+                    else self._loop.now,
+                    self._loop.now,
+                    bytes=max(1, s.prompt_total) * self.kv_bytes_per_token)
+        self._admit_decode()
+
+    def _reschedule(self) -> None:
+        """Flip phase boundaries that are (numerically) due, then point one
+        event at the earliest remaining boundary.  Mirrors
+        ``TokenBucketExecutor._reschedule``; the extra boundary here is
+        prefill completion, which emits the first token and starts the
+        KV transfer (the copy frees the prefill pool)."""
+        now = self._loop.now
+        handed = [s for s in self._prefill if s.prompt_left <= _EPS]
+        for s in handed:
+            self._prefill.remove(s)
+            s.prompt_left = 0.0
+            s.first_token_at = now
+            self._transfers.append(s)
+            self._handoff_bytes += (max(1, s.prompt_total)
+                                    * self.kv_bytes_per_token)
+            self._loop.schedule(self.transfer_s(s.prompt_total),
+                                lambda s=s: self._on_transfer_landed(s))
+        done = [s for s in self._decode if s.output_left <= _EPS]
+        for s in done:
+            self._decode.remove(s)
+        if self._pending_ev is not None:
+            self._loop.cancel(self._pending_ev)
+            self._pending_ev = None
+        dts = [s.prompt_left / self.prefill_profile.prefill_tps
+               for s in self._prefill]
+        if self._decode:
+            dec = self._decode_rate()
+            dts += [s.output_left / dec for s in self._decode]
+        if dts:
+            self._pending_ev = self._loop.schedule(max(0.0, min(dts)),
+                                                   self._on_boundary)
+        if done:
+            # freed decode capacity lands waiting handoffs before the
+            # completion callbacks re-enter admit() (node queue refill)
+            self._admit_decode()
+            for s in done:
+                ft = s.first_token_at if s.first_token_at is not None \
+                    else now
+                tr = get_tracer()
+                if tr.enabled:
+                    rid = getattr(getattr(s.item, "req", None), "rid", "")
+                    tr.span("engine.prefill", rid, self.owner,
+                            s.started_at, ft, prompt_tokens=s.prompt_total)
+                    # covers wire + handoff queue + decode (the nested
+                    # disagg.handoff span shows the wire leg)
+                    tr.span("engine.decode", rid, self.owner, ft, now,
+                            output_tokens=s.output_total, stage="disagg")
+                self._on_complete(s.item, s.started_at, ft)
 
     def _on_boundary(self) -> None:
         self._pending_ev = None

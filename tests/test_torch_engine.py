@@ -108,10 +108,12 @@ def test_executor_load_matches_reference_in_lockstep(setup):
 
 
 def test_unported_modes_name_their_roadmap_item(setup):
-    """What stays unported -- the KV handoff and the families the
-    reference serves by wave batching -- raises naming its ROADMAP item;
-    slot, speculative, int8 and prefix-cache engines construct, and
-    ``prefix_pin`` without the cache returns 0, as the reference's."""
+    """What stays unported -- the families the reference serves by wave
+    batching -- raises naming its ROADMAP item; slot, speculative, int8
+    and prefix-cache engines construct, ``prefix_pin`` without the cache
+    returns 0, and the KV handoff refuses the backends the reference
+    refuses (slot, speculative, int8 pages) while an idle fp paged engine
+    hands off nothing."""
     _, cfg_t, _, pt = setup
     Engine(cfg_t, pt, paged=True, prefix_cache=True)
     for paged in (False, True):
@@ -121,10 +123,13 @@ def test_unported_modes_name_their_roadmap_item(setup):
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         Engine(cfg_t.replace(family="moe"), pt)
     for eng in (Engine(cfg_t, pt), Engine(cfg_t, pt, paged=True),
-                Engine(cfg_t, pt, paged=True, spec_draft=(cfg_t, pt))):
-        for call in (eng.extract_handoffs, lambda: eng.accept_handoff(None)):
-            with pytest.raises(NotImplementedError, match="Queue A item 5"):
-                call()
+                Engine(cfg_t, pt, paged=True, spec_draft=(cfg_t, pt)),
+                Engine(cfg_t.replace(kv_quant=True), pt, paged=True)):
+        if eng.paged and not eng.spec and not eng.cfg.kv_quant:
+            assert eng.extract_handoffs() == []
+        else:
+            with pytest.raises(AssertionError):
+                eng.extract_handoffs()
         assert eng.prefix_pin(GenRequest(
             rid="p", tokens=np.arange(2, 40, dtype=np.int32))) == 0
 

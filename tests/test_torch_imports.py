@@ -4,15 +4,18 @@
   (checked in a fresh interpreter, so this process's imports cannot hide
   a leak).
 * Entry points default to the card and raise on this CPU-only host
-  instead of falling back.
+  instead of falling back (``--disagg`` and ``--trace`` included); the
+  backend pairs the reference refuses are argparse errors here too.
 * The port keeps its own copies of ``repro.sim.servicemodel`` /
   ``repro.sim.executor`` (under ``_``-prefixed names where the linter's
   twin-drift rule would see a second definition): every constant equals
-  the reference's, every shared predicate agrees on a grid of inputs.
+  the reference's, every shared predicate agrees on a grid of inputs,
+  and the sim executors take the reference's keyword defaults.
 * ``python -m repro.analysis`` still finds nothing new.
 """
 
 import ast
+import inspect
 import json
 import math
 import pathlib
@@ -77,11 +80,11 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.run(cfg, nodes=1, requests=1)
     for flags in ([], ["--paged"], ["--spec"], ["--kv-quant"],
-                  ["--spec", "--kv-quant"]):
+                  ["--spec", "--kv-quant"], ["--disagg"],
+                  ["--trace", "t.json"], ["--disagg", "--trace", "t.json"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main(flags)
-    for flags in (["--disagg"], ["--kv-quant", "--disagg"],
-                  ["--trace", "t.json"]):
+    for flags in (["--kv-quant", "--disagg"], ["--spec", "--disagg"]):
         with pytest.raises(SystemExit):     # argparse error, not a silent
             serve.main(["--device", "cpu", *flags])  # switch of backend
 
@@ -101,7 +104,8 @@ def _public_consts(mod):
 def test_copied_constants_equal_the_reference():
     names = _public_consts(jsm)
     assert {"SPEC_K", "DIGEST_TIE_EPS", "KV_BYTES_PER_TOKEN",
-            "GPU_SCALE"} <= set(names)
+            "TRANSFER_BYTES_PER_S", "TRANSFER_BASE_S", "SPEC_ALPHA0",
+            "SPEC_OVERHEAD", "KV_TOKENS_PER_STREAM", "GPU_SCALE"} <= set(names)
     for name in names:
         assert getattr(tsm, "_" + name) == getattr(jsm, name), name
     assert ttracer._SIM == jtracer.SIM and ttracer._WALL == jtracer.WALL
@@ -110,6 +114,21 @@ def test_copied_constants_equal_the_reference():
                  ("qwen3-32b", "A100", "vllm", "fp8wo", 0.7)]:
         assert tsm.make_profile(*args).__dict__ == \
             jsm.make_profile(*args).__dict__
+
+
+@pytest.mark.parametrize("name", ["TokenBucketExecutor",
+                                  "SpecTokenBucketExecutor",
+                                  "DisaggTokenBucketExecutor"])
+def test_sim_twins_take_the_reference_defaults(name):
+    """The sim executors' keyword defaults (the spec and transfer constants
+    the port imports under ``_`` names) equal the reference's."""
+    def defaults(cls):
+        return {k: p.default for k, p in
+                inspect.signature(cls.__init__).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+    want = defaults(getattr(jexec, name))
+    assert defaults(getattr(texec, name)) == want
+    assert name == "TokenBucketExecutor" or want
 
 
 def test_copied_predicates_agree_on_a_grid():
