@@ -33,7 +33,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    at K = 1 each must equal its paged decode kernel at ``lengths + 1``.
    The bf16 int8 paged decode kernel is also timed at 32 rows x 4096 with
    1-4 splits forced (``int8_split_sweep``: what its split target rests
-   on).
+   on).  Then every row the dense variants and the moe family run, at
+   their head ratios (``RATIOS``: rep 9 = 36/4, rep 12 = 96/8 and rep 8 =
+   64/8 for rows 1-4 with 2q and 3q; rep 6 = 48/8 and, at D=64, rep 2 =
+   16/8 for rows 1 and 4), in both dtypes, at the serve shape and one long
+   shape (S=4096 prefill, 32 x 4096 decode and verify), the verify rows at
+   rep 12 also at K = 33 (396 query rows a kv head).
    Each bf16 case prints
    ``vs_library`` (ms / library_ms: below 1, faster than the library call)
    and ``bound_share`` (bound_ms / ms: the share of the least time the
@@ -58,7 +63,19 @@ Phases, each of which raises (exit code != 0) when it fails:
    fresh prefills.  ``apply_logits`` over one served sequence is held to
    fresh prefills at every position, and ``Engine.logprob_of`` of the
    sequence must equal the sum of the gold tokens' log-softmax taken from
-   those fresh prefills within 1e-3 relative;
+   those fresh prefills within 1e-3 relative.  Then the dense variants
+   and the moe family (``ARCH_CONSISTENCY``), each at full width in
+   float32 on the port's seeded init with every bias, norm scale and norm
+   bias perturbed: starcoder2-7b (32 layers) on slot, paged and
+   speculative engines, qwen3-32b (8 of 64 layers) on slot and paged,
+   command-r-plus-104b (4 of 64 layers) on paged and speculative engines
+   (their drafts ``cfg.draft()``), granite-moe-1b-a400m (24 layers) and
+   dbrx-132b (2 of 40 layers) on wave engines at capacity factor 8 (no
+   token dropped, so a decode step and a prefill compute the same
+   function): every decode, verify and wave-decode logit row held to a
+   fresh prefill over the same tokens (a wave row's with its left pads)
+   within 1e-3 * max|logit|, every token the greedy choice of a fresh
+   prefill, and each arch's tokens identical across its backends;
 4. the main paths, through ``repro_torch.launch.serve.run`` -- the
    decentralized protocol assigns 8 requests and two nodes serve them with
    full-width qwen3-8b (36 layers, bfloat16, random weights seeded per
@@ -75,7 +92,14 @@ Phases, each of which raises (exit code != 0) when it fails:
    and a third, untimed run with ``trace=`` must write a Chrome trace
    with both clock domains, whose sim-clock stages add up to each
    request's simulated latency within 1e-9 s and which holds one
-   ``disagg.handoff`` event per handoff.  Every request must return tokens,
+   ``disagg.handoff`` event per handoff; then the new configurations in
+   bfloat16 (``PHASE_ARCH``, biases and norms perturbed): [4h]
+   starcoder2-7b, all 32 layers, on paged engines, each node its own
+   weights; [4i] qwen3-32b, all 64 layers, on slot engines and [4j]
+   command-r-plus-104b, 16 of its 64 layers, on speculative engines, each
+   with one set of weights for both nodes (one 80 GB card holds one);
+   [4k] granite-moe-1b-a400m, all 24 layers, on the wave engines the moe
+   family gets, each node its own weights.  Every request must return tokens,
    and every kernel of the phase's path must have launched: the launch
    counts are zeroed just before each run and read just after it, and the
    shapes, tables and lengths the run hands each kernel are recorded.
@@ -87,12 +111,14 @@ Phases, each of which raises (exit code != 0) when it fails:
 5. each kernel against its plain version again, at the shapes its serve
    phase gave it: the most frequent prefill shape, and the decode or verify
    step of median attended length with that step's own table and lengths;
-   the verify kernels also at phase 4f's warm prefill.
+   the verify kernels also at phase 4f's warm prefill; each kernel of
+   phases 4h-4k at that phase's shapes and head ratio.
 
 Times (``ms``, ``plain_ms``, ``library_ms``) are device time per call from
-``torch.profiler`` over repeated calls on the same inputs (warm L2) or,
-where the profiler records no device activity three times running, from
-CUDA events around calls queued behind a spinning kernel (``timed_by``);
+``torch.profiler`` over repeated calls on the same inputs (warm L2),
+taken only from a session whose records are a multiple of the calls;
+where three sessions running fell short, CUDA events around calls queued
+behind a spinning kernel (``timed_by``);
 ``call_ms`` is the kernel wrapper's time per call from CUDA events around
 back-to-back calls, which is the host's call rate where that is slower.
 
@@ -102,8 +128,10 @@ replaces, the serve phase it was measured in, its launches there, and its
 error and times at that phase's shapes (phase 5) beside the least time the
 card could take (``bound_ms``: the larger of the bytes it must move over
 3.35 TB/s and the operations it must do over the card's peak for their
-type), with ``vs_library`` and ``bound_share``, and its launches in phases
-4f and 4g (``launches_4f``, ``launches_4g``).  The last line is ``{"ok":
+type), with ``vs_library`` and ``bound_share``, its launches in phases
+4f and 4g (``launches_4f``, ``launches_4g``), and, for each of phases
+4h-4k whose path runs it, its launches and times there
+(``arch_phases``).  The last line is ``{"ok":
 true, "device": ...}``.  Without a CUDA card, or outside a checkout of the
 repository, the script exits with an error before printing any result.
 """
@@ -131,6 +159,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # before each call by a read of FLUSH_BYTES (cold_ms, cold_bound_share)
 L2_BYTES = 50e6                           # H100 SXM, NVIDIA data sheet
 FLUSH_BYTES = 256 * 2**20
+# short spinning kernels (torch.cuda._sleep) around each profiled session's
+# calls: the profiler may drop a session's first or last records
+EDGE_SPINS, EDGE_SPIN_CYCLES = 32, 2_000
 H, HKV, D, PAGE = 32, 8, 128, 16          # qwen3-8b attention widths
 TARGET, DRAFT = (H, HKV, D), (2, 1, 64)   # (H, Hkv, D); the draft: cfg.draft()
 SPEC_K = 4
@@ -147,10 +178,23 @@ ENTRIES = {  # entry: (kernel in ops.KERNELS, head width, serve phase)
     "paged_decode_int8": ("paged_decode_int8", 128, "4d"),
     "paged_verify_int8": ("paged_verify_int8", 128, "4e"),
 }
-# serve phase: (engine mode, int8 KV)
+# serve phase: (engine mode, int8 KV); the driver's default mode, slot,
+# gives the moe family wave engines
 PHASE_MODE = {"4": ("paged", False), "4b": ("slot", False),
               "4c": ("spec", False), "4d": ("paged", True),
-              "4e": ("spec", True), "4g": ("disagg", False)}
+              "4e": ("spec", True), "4g": ("disagg", False),
+              "4h": ("paged", False), "4i": ("slot", False),
+              "4j": ("spec", False), "4k": ("slot", False)}
+# the serve phases of the dense variants and the moe family: (arch, layers
+# served, one set of weights for both nodes).  qwen3-32b (65.5 GB of bf16
+# weights) and command-r-plus-104b (56.6 GB at 16 of its 64 layers; 208 GB
+# whole) fit one 80 GB card only with the two nodes sharing their weights,
+# as the two engines of a disaggregated node already do; the others draw
+# each node's own.  Phases 4-4g serve qwen3-8b, all 36 layers
+PHASE_ARCH = {"4h": ("starcoder2-7b", 32, False),
+              "4i": ("qwen3-32b", 64, True),
+              "4j": ("command-r-plus-104b", 16, True),
+              "4k": ("granite-moe-1b-a400m", 24, False)}
 # (kernel, head width) pairs each serve phase's path must launch
 PATHS = {"4": {("flash_attention", 128), ("paged_decode", 128)},
          "4b": {("flash_attention", 128), ("flash_decode", 128)},
@@ -162,7 +206,12 @@ PATHS = {"4": {("flash_attention", 128), ("paged_decode", 128)},
          "4f": {("flash_attention", 128), ("paged_decode", 128),
                 ("paged_verify", 128), ("paged_decode_int8", 128),
                 ("paged_verify_int8", 128)},
-         "4g": {("flash_attention", 128), ("paged_decode", 128)}}
+         "4g": {("flash_attention", 128), ("paged_decode", 128)},
+         "4h": {("flash_attention", 128), ("paged_decode", 128)},
+         "4i": {("flash_attention", 128), ("flash_decode", 128)},
+         "4j": {("flash_attention", 128), ("flash_attention", 64),
+                ("flash_decode", 64), ("paged_verify", 128)},
+         "4k": {("flash_attention", 64), ("flash_decode", 64)}}
 KERNEL_OPS = {  # kernel: the ops entry point the model calls for it
     "flash_attention": "attention", "paged_decode": "paged_decode",
     "flash_decode": "decode", "paged_verify": "paged_verify",
@@ -211,28 +260,67 @@ def queued_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int, attempts: int = 3) -> tuple[float, str]:
-    """Mean device milliseconds per call and how they were timed: the
-    summed duration of the device activity ``torch.profiler`` records over
-    ``iters`` calls.  The profiler now and then hands back a session
-    without any device activity; such a session is run again, and after
-    ``attempts`` empty ones the calls are timed by ``queued_ms``."""
+def _profiled(run, iters: int, edges: int = 0) -> list:
+    """(name, us) of every device kernel ``torch.profiler`` records over
+    ``iters`` calls of ``run``, between ``edges`` short spinning kernels
+    (``torch.cuda._sleep``) on each side."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(edges):
+            torch.cuda._sleep(EDGE_SPIN_CYCLES)
+        for _ in range(iters):
+            run()
+        for _ in range(edges):
+            torch.cuda._sleep(EDGE_SPIN_CYCLES)
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+_SPIN_NAMES: set = set()
+
+
+def _kernel_records(run, iters: int, skip=frozenset()) -> list:
+    """``_profiled`` with ``EDGE_SPINS`` spinning kernels on each side of
+    the calls, so that records a session loses at its start or its end are
+    theirs rather than the calls', and with the spinning kernels (named by
+    a profiled run of them alone, once) and those named in ``skip`` left
+    out."""
+    import torch
+    for _ in range(3):
+        if not _SPIN_NAMES:
+            _SPIN_NAMES.update(name for name, _ in _profiled(
+                lambda: torch.cuda._sleep(EDGE_SPIN_CYCLES), EDGE_SPINS))
+    if not _SPIN_NAMES:
+        raise RuntimeError("the profiler recorded none of the spinning "
+                           "kernels in 3 sessions")
+    return [(name, us) for name, us in _profiled(run, iters, EDGE_SPINS)
+            if name not in skip and name not in _SPIN_NAMES]
+
+
+def device_ms(fn, iters: int, attempts: int = 3) -> tuple[float, str]:
+    """Mean device milliseconds per call and how they were timed: the
+    summed duration of the device kernels ``torch.profiler`` records over
+    ``iters`` calls.  Each call launches the same kernels, so a complete
+    session records a multiple of ``iters`` of them; the profiler now and
+    then drops records, and a session that falls short of a multiple (or
+    records nothing) is run again.  After ``attempts`` such sessions the
+    calls are timed by ``queued_ms`` instead, and ``timed_by`` says so:
+    no sum of an incomplete session is reported."""
+    import torch
     fn()
     torch.cuda.synchronize()
+    counts = []
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / iters / 1e3, "profiler"
-    log(f"  the profiler recorded no device activity in {attempts} sessions:"
-        f" timed by CUDA events behind a spinning kernel instead")
+        kern = _kernel_records(fn, iters)
+        if kern and len(kern) % iters == 0:
+            return sum(t for _, t in kern) / iters / 1e3, "profiler"
+        counts.append(len(kern))
+    log(f"  the profiler recorded {counts} device kernels over {iters} calls"
+        f" in {attempts} sessions, none a multiple of the calls: timed by"
+        f" CUDA events behind a spinning kernel instead")
     return queued_ms(fn, iters), "cuda_events"
 
 
@@ -242,21 +330,12 @@ def cold_ms(fn, iters: int, attempts: int = 3) -> tuple[float, str]:
     holding only clean lines of that buffer (a write would leave dirty
     ones, whose write-back the timed call would pay for), and the device
     time summed is that of every kernel but the read's (named by a
-    profiled run of reads alone).  After ``attempts`` empty profiler
-    sessions the calls are timed one by one by CUDA events, queued behind
-    a spinning kernel."""
+    profiled run of reads alone).  A session whose kernels other than the
+    read's are not a multiple of ``iters`` is run again; after
+    ``attempts`` of them the calls are timed one by one by CUDA events,
+    queued behind a spinning kernel."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-
-    def device_events(run):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                run()
-            torch.cuda.synchronize()
-        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                if e.device_type == DeviceType.CUDA]
 
     def flushed():
         flush.sum()
@@ -264,14 +343,18 @@ def cold_ms(fn, iters: int, attempts: int = 3) -> tuple[float, str]:
 
     flushed()
     torch.cuda.synchronize()
+    counts = []
     for _ in range(attempts):
-        own = {name for name, _ in device_events(flush.sum)}
-        us = sum(t for name, t in device_events(flushed)
-                 if name not in own) if own else 0
-        if us > 0:
-            return us / iters / 1e3, "profiler"
-    log(f"  the profiler recorded no device activity in {attempts} sessions:"
-        f" cold calls timed by CUDA events one by one instead")
+        own = frozenset(name for name, _ in _kernel_records(flush.sum,
+                                                             iters))
+        kern = _kernel_records(flushed, iters, own) if own else []
+        if kern and len(kern) % iters == 0:
+            return sum(t for _, t in kern) / iters / 1e3, "profiler"
+        counts.append(len(kern))
+    log(f"  the profiler recorded {counts} device kernels besides the L2"
+        f" flush over {iters} cold calls in {attempts} sessions, none a"
+        f" multiple of the calls: cold calls timed by CUDA events one by"
+        f" one instead")
     marks = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda._sleep(200_000_000)        # clock cycles
@@ -554,19 +637,21 @@ def fresh_tables(lengths, width=None, page=PAGE):
     return bt
 
 
-def _pool(bt, lengths, kq, dt, seed, quant=False, page=PAGE):
+def _pool(bt, lengths, kq, dt, seed, quant=False, page=PAGE, heads=TARGET):
     """q (B, kq, H, D), random pools holding every page ``bt`` names --
     (k, v) of q's dtype, or with ``quant`` (k, v, k_scale, v_scale): the
     same random values quantized to int8 pages and bf16 scales on the card
-    by the port's ``kv_quantize`` -- the table and the lengths."""
+    by the port's ``kv_quantize`` -- the table and the lengths; ``heads``
+    is (H, Hkv, D)."""
     import torch
     from repro_torch.models.attention import kv_quantize
+    h, hkv, d = heads
     dtype = getattr(torch, dt)
     g = torch.Generator("cuda").manual_seed(seed)
     n_pool = int(bt.max()) + 1
-    q = torch.randn((bt.shape[0], kq, H, D), generator=g,
+    q = torch.randn((bt.shape[0], kq, h, d), generator=g,
                     device="cuda").to(dtype)
-    kp, vp = (torch.randn((n_pool, page, HKV, D), generator=g,
+    kp, vp = (torch.randn((n_pool, page, hkv, d), generator=g,
                           device="cuda").to(dtype) for _ in range(2))
     pools = (kp, vp)
     if quant:
@@ -601,13 +686,15 @@ def _gathered(pools, btc, dtype):
     return tuple(x.transpose(1, 2).contiguous() for x in (kg, vg))
 
 
-def _kv_bytes(positions, quant, elem):
+def _kv_bytes(positions, quant, elem, heads=TARGET):
     """Bytes of ``positions`` (position, kv head) K or V vectors: D values
     of the pool's type, plus one bf16 scale each for int8 pages."""
-    return positions * HKV * (D * 1 + 2 if quant else D * elem)
+    _, hkv, d = heads
+    return positions * hkv * (d * 1 + 2 if quant else d * elem)
 
 
-def paged_case(name, bt, lengths, dt, *, iters=100, quant=False, page=PAGE):
+def paged_case(name, bt, lengths, dt, *, iters=100, quant=False, page=PAGE,
+               heads=TARGET):
     """The paged decode kernel (``quant``: its int8 form) on block table
     ``bt`` (numpy int32 (B, maxp)) and ``lengths``, over a random pool of
     ``page``-position pages holding every page the table names."""
@@ -615,8 +702,9 @@ def paged_case(name, bt, lengths, dt, *, iters=100, quant=False, page=PAGE):
     import torch
     kernel, plain = _paged_fns(False, quant)
     b, maxp = bt.shape
+    h, hkv, d = heads
     q, pools, btc, ln = _pool(bt, lengths, 1, dt, sum(lengths) + b, quant,
-                              page)
+                              page, heads)
     got = kernel(q, *pools, btc, ln)
     torch.cuda.synchronize()
     splits = kernel.last_splits
@@ -643,12 +731,13 @@ def paged_case(name, bt, lengths, dt, *, iters=100, quant=False, page=PAGE):
     entries = sum(-(-(min(n, cap) if n > 0 else cap) // page)
                   for n in lengths)
     elem = q.element_size()
-    nbytes = (2 * q.numel() * elem + _kv_bytes(k_pos + v_pos, quant, elem)
+    nbytes = (2 * q.numel() * elem
+              + _kv_bytes(k_pos + v_pos, quant, elem, heads)
               + 4 * (entries + b))
-    flops = 2.0 * H * D * (k_pos + v_pos)
+    flops = 2.0 * h * d * (k_pos + v_pos)
     return with_cold(dict(
         case=name, dtype=dt, shape=f"B={b} maxp={maxp} "
-        f"lengths={_shown(lengths)} H={H} Hkv={HKV} D={D} page={page}"
+        f"lengths={_shown(lengths)} H={h} Hkv={hkv} D={d} page={page}"
         + (" int8 pages" if quant else ""), splits=splits, max_abs_err=err,
         tol=TOL[dt], **scaled, **t, **bound(nbytes, flops, dt)), run, iters)
 
@@ -695,7 +784,8 @@ def int8_split_sweep(splits=(1, 2, 3, 4), iters=20) -> dict:
     return out
 
 
-def verify_case(name, bt, lengths, kq, dt, *, iters=100, quant=False):
+def verify_case(name, bt, lengths, kq, dt, *, iters=100, quant=False,
+                heads=TARGET):
     """The paged verify kernel (``quant``: its int8 form): ``kq`` query
     tokens per row over block table ``bt`` with ``lengths`` valid
     positions before them."""
@@ -703,7 +793,9 @@ def verify_case(name, bt, lengths, kq, dt, *, iters=100, quant=False):
     import torch.nn.functional as F
     kernel, plain = _paged_fns(True, quant)
     b, maxp = bt.shape
-    q, pools, btc, ln = _pool(bt, lengths, kq, dt, sum(lengths) + kq, quant)
+    h, hkv, d = heads
+    q, pools, btc, ln = _pool(bt, lengths, kq, dt, sum(lengths) + kq, quant,
+                              heads=heads)
     got = kernel(q, *pools, btc, ln)
     torch.cuda.synchronize()
     err = check(f"verify{' int8' * quant} {name}", got,
@@ -724,11 +816,12 @@ def verify_case(name, bt, lengths, kq, dt, *, iters=100, quant=False):
     read = [min(n + kq, cap) for n in lengths]
     seen = sum(min(n + j + 1, cap) for n in lengths for j in range(kq))
     elem = q.element_size()
-    nbytes = (2 * q.numel() * elem + _kv_bytes(2 * sum(read), quant, elem)
+    nbytes = (2 * q.numel() * elem
+              + _kv_bytes(2 * sum(read), quant, elem, heads)
               + 4 * (sum(-(-r // PAGE) for r in read) + b))
-    flops = 4.0 * H * D * seen
+    flops = 4.0 * h * d * seen
     return dict(case=name, dtype=dt, shape=f"B={b} K={kq} maxp={maxp} "
-                f"lengths={_shown(lengths)} H={H} Hkv={HKV} D={D} "
+                f"lengths={_shown(lengths)} H={h} Hkv={hkv} D={d} "
                 f"page={PAGE}" + (" int8 pages" if quant else ""),
                 max_abs_err=err, tol=TOL[dt], **t,
                 **bound(nbytes, flops, dt))
@@ -870,6 +963,75 @@ def phase_kernels():
     return cases
 
 
+# the head ratios of the dense and moe configs: label -> ((H, Hkv, D), the
+# kernel-table rows their paths run).  Rows 1, 3 and 3q flatten Sq * rep
+# query rows of a kv head into tiles, which straddle query positions
+# unevenly at rep 9 and 12; the decode body keeps rep <= 16 rows of one
+# 16-row slice
+RATIOS = {
+    "rep9 (starcoder2-7b)": ((36, 4, 128), ("1", "2", "2q", "3", "3q", "4")),
+    "rep12 (command-r-plus-104b)": ((96, 8, 128),
+                                    ("1", "2", "2q", "3", "3q", "4")),
+    "rep8 (qwen3-32b)": ((64, 8, 128), ("1", "2", "2q", "3", "3q", "4")),
+    "rep6 (dbrx-132b)": ((48, 8, 128), ("1", "4")),
+    "rep2 D=64 (granite-moe-1b-a400m)": ((16, 8, 64), ("1", "4")),
+}
+
+
+def phase_ratios() -> dict:
+    """[2, new head ratios] Each row its configs run against its plain
+    version at each ratio of ``RATIOS``, in bfloat16 and float32, at the
+    serve path's shape ("main": a prefill of 4 x 32 tokens, a decode or
+    K = 5 verify step of four rows with a length-0 rider) and one long
+    shape (S = 4096 prefill, 32 rows x 4096 decode and verify), timed with
+    ``vs_library`` and ``bound_share``; at rep 12 the verify rows also at
+    K = 33 (396 query rows a kv head)."""
+    out = {}
+    rider, past, warm = [0, 17, 40, 33], [30, 31, 9, 0], [48, 48, 0, 16]
+    long_rows = [4096] * 32
+    for label, (heads, rows) in RATIOS.items():
+        cases = []
+        for dt in ("bfloat16", "float32"):
+            if "1" in rows:
+                cases += [("1", prefill_case("main", 4, 32, dt, heads=heads,
+                                             iters=50)),
+                          ("1", prefill_case("long", 1, 4096, dt,
+                                             heads=heads, iters=5))]
+            if "4" in rows:
+                cases += [("4", decode_case("main", 64, [25, 1, 33, 0], dt,
+                                            heads=heads, iters=50)),
+                          ("4", decode_case("long", 4096, long_rows, dt,
+                                            heads=heads, iters=10))]
+            for row, quant in (("2", False), ("2q", True)):
+                if row in rows:
+                    cases += [
+                        (row, paged_case("main", fresh_tables(rider), rider,
+                                         dt, iters=50, quant=quant,
+                                         heads=heads)),
+                        (row, paged_case("long", fresh_tables(long_rows),
+                                         long_rows, dt, iters=10,
+                                         quant=quant, heads=heads))]
+            for row, quant in (("3", False), ("3q", True)):
+                if row not in rows:
+                    continue
+                cases += [
+                    (row, verify_case("main", fresh_tables(past, width=2),
+                                      past, SPEC_K + 1, dt, iters=50,
+                                      quant=quant, heads=heads)),
+                    (row, verify_case("long", fresh_tables(
+                        [n + SPEC_K + 1 for n in long_rows]), long_rows,
+                        SPEC_K + 1, dt, iters=10, quant=quant, heads=heads))]
+                if heads[0] // heads[1] == 12:
+                    cases.append((row, verify_case(
+                        "k33", fresh_tables([n + 33 for n in warm], width=5),
+                        warm, 33, dt, iters=20, quant=quant, heads=heads)))
+        out[label] = [dict(with_ratios(r), row=row) for row, r in cases]
+        for r in out[label]:
+            show(f"row {r['row']} {label.split()[0]}", r)
+    log("ratio_cases " + json.dumps(out))
+    return out
+
+
 def _most_common_prefill(seen, d):
     shapes = collections.Counter(x for x in seen if x[0][3] == d)
     log(f"  prefill shapes at D={d} (q shape, causal, window: calls): "
@@ -940,13 +1102,122 @@ def phase_main_shapes(seen) -> dict:
 
 
 # ------------------------------------------------------------ phase 3
+class Consistency:
+    """Phase 3's yardstick for one model: the last-position logits of a
+    fresh prefill over a token history (cached), and the hold of a
+    recorded logit row to them within 1e-3 x max|logit| (``worst`` keeps
+    each kind's largest |diff| / max|logit|)."""
+
+    def __init__(self, cfg, params):
+        from repro_torch.models import registry
+        self.cfg, self.params = cfg, params
+        self.prefill = registry.get_family(cfg).prefill
+        self.cache, self.worst = {}, {}
+
+    def fresh(self, toks):
+        import torch
+        key = tuple(int(t) for t in toks)
+        if key not in self.cache:
+            self.cache[key] = self.prefill(
+                self.params, self.cfg, torch.tensor([list(key)],
+                                                    device="cuda"))[0][0, 0] \
+                .float().cpu()
+        return self.cache[key]
+
+    def held(self, kind, got, want, what):
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        self.worst[kind] = max(self.worst.get(kind, 0.0), diff / scale)
+        if diff > 1e-3 * scale:
+            raise AssertionError(f"{what}: |{kind}| {diff:.3e} > "
+                                 f"1e-3 * {scale:.3e}")
+
+    def hold_history(self, kind, steps):
+        """Hold every recorded logit row to a fresh prefill over its fed
+        history; returns how many."""
+        rows = by_history(steps)
+        for key, got in rows.items():
+            self.held(kind, got, self.fresh(list(key)),
+                      f"{kind} after {len(key)} tokens")
+        return len(rows)
+
+    def hold_greedy(self, kind, histories):
+        """Each emitted token is the greedy choice of a fresh prefill:
+        ``histories`` pairs each request's fed prompt (a wave's with its
+        left pads) with its result."""
+        import torch
+        from repro_torch.serving.sampling import masked_logits
+        for rid, prompt, result in histories:
+            toks = [int(t) for t in prompt] + [int(t) for t in result]
+            for t in range(len(result)):
+                want = int(torch.argmax(masked_logits(
+                    self.fresh(toks[: len(prompt) + t]),
+                    self.cfg.vocab_size)))
+                if want != int(result[t]):
+                    raise AssertionError(f"{kind} {rid} token {t}: "
+                                         f"{result[t]} != prefill {want}")
+
+
+def recorder(eng, attr, steps):
+    """Wrap ``eng``'s decode or verify forward ``attr`` so that each step
+    appends its live rows' fed histories, tokens and logits to
+    ``steps``."""
+    fwd = getattr(eng, attr)
+
+    def recording(p, c_, cache, tok):
+        # rows with a sampled token are the step's live rows; their fed
+        # history is the prompt plus what they emitted before it
+        live = {i: [int(t) for t in s.req.tokens] + s.out[:-1]
+                for i, s in enumerate(eng._slots)
+                if s is not None and s.out}
+        logits, cache = fwd(p, c_, cache, tok)
+        if live:
+            steps.append((live, tok.cpu().tolist(), logits.float().cpu()))
+        return logits, cache
+
+    setattr(eng, attr, recording)
+
+
+def wave_recorder(eng, steps, prompts):
+    """A wave engine's recorder: its prefill notes each row's left-padded
+    prompt (appended to ``prompts``) and each lock-step decode appends
+    every row's fed history, token and logits to ``steps``."""
+    prefill, decode = eng._prefill, eng._decode
+    fed = []
+
+    def recording_prefill(p, c_, toks, **kw):
+        fed[:] = [[int(t) for t in row] for row in toks.cpu().tolist()]
+        prompts.extend(list(row) for row in fed)
+        return prefill(p, c_, toks, **kw)
+
+    def recording_decode(p, c_, cache, tok):
+        live = {i: list(h) for i, h in enumerate(fed)}
+        logits, cache = decode(p, c_, cache, tok)
+        toks = tok.cpu().tolist()
+        steps.append((live, toks, logits.float().cpu()))
+        for i, t in enumerate(toks):
+            fed[i].append(int(t[0]))
+        return logits, cache
+
+    eng._prefill, eng._decode = recording_prefill, recording_decode
+
+
+def by_history(steps):
+    """Each recorded logit row keyed by the tokens fed up to it."""
+    out = {}
+    for live, toks, logits in steps:
+        for i, hist in live.items():
+            for j in range(len(toks[i])):
+                out[tuple(hist + toks[i][: j + 1])] = logits[i, j]
+    return out
+
+
 def phase_consistency(n_layers: int):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import dense, registry
     from repro_torch.serving import DisaggEngineExecutor, Engine, GenRequest
-    from repro_torch.serving.sampling import masked_logits
     cfg = get_config("qwen3-8b").replace(dtype="float32", n_layers=n_layers)
     qcfg = cfg.replace(kv_quant=True)
     t0 = time.perf_counter()
@@ -955,6 +1226,8 @@ def phase_consistency(n_layers: int):
     gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
     log(f"  {cfg.name} x{cfg.n_layers} layers fp32: {gb:.1f} GB of weights "
         f"in {time.perf_counter() - t0:.1f}s")
+    kit = Consistency(cfg, params)
+    fresh, held, worst = kit.fresh, kit.held, kit.worst
     rng = torch.Generator().manual_seed(0)
 
     def tokens(n):
@@ -962,45 +1235,6 @@ def phase_consistency(n_layers: int):
             .astype("int32")
 
     prompts = [tokens(n) for n in (24, 11)]
-    fresh_cache = {}
-
-    def fresh(toks):
-        key = tuple(toks)
-        if key not in fresh_cache:
-            logits = dense.prefill(params, cfg, torch.tensor(
-                [list(key)], device="cuda"))[0][0, 0].float().cpu()
-            fresh_cache[key] = logits
-        return fresh_cache[key]
-
-    worst = {}
-
-    def held(kind, got, want, what):
-        diff = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        worst[kind] = max(worst.get(kind, 0.0), diff / scale)
-        if diff > 1e-3 * scale:
-            raise AssertionError(f"{what}: |{kind}| {diff:.3e} > "
-                                 f"1e-3 * {scale:.3e}")
-
-    def recorder(eng, attr, steps):
-        """Wrap ``eng``'s decode or verify forward ``attr`` so that each
-        step appends its live rows' fed histories, tokens and logits to
-        ``steps``."""
-        fwd = getattr(eng, attr)
-
-        def recording(p, c_, cache, tok):
-            # rows with a sampled token are the step's live rows; their
-            # fed history is the prompt plus what they emitted before it
-            live = {i: [int(t) for t in s.req.tokens] + s.out[:-1]
-                    for i, s in enumerate(eng._slots)
-                    if s is not None and s.out}
-            logits, cache = fwd(p, c_, cache, tok)
-            if live:
-                steps.append((live, tok.cpu().tolist(),
-                              logits.float().cpu()))
-            return logits, cache
-
-        setattr(eng, attr, recording)
 
     def serve(c, waves, warm=None, **kw):
         """Serve ``waves`` (lists of prompts, one wave after the other) on
@@ -1030,15 +1264,6 @@ def phase_consistency(n_layers: int):
             eng.serve(batch)
             reqs += batch
         return reqs, steps, eng
-
-    def by_history(steps):
-        """Each recorded logit row keyed by the tokens fed up to it."""
-        out = {}
-        for live, toks, logits in steps:
-            for i, hist in live.items():
-                for j in range(len(toks[i])):
-                    out[tuple(hist + toks[i][: j + 1])] = logits[i, j]
-        return out
 
     results = {}
     records = {}
@@ -1072,18 +1297,8 @@ def phase_consistency(n_layers: int):
                 f"worst |diff| / max|logit| = {worst[mode]:.2e} (limit "
                 f"1e-3)")
             continue
-        for key, got in records[mode].items():
-            held(mode, got, fresh(list(key)), f"{mode} after {len(key)} "
-                 f"tokens")
-        # each emitted token is the greedy choice of a fresh prefill
-        for r in reqs:
-            toks = [int(t) for t in r.tokens] + [int(t) for t in r.result]
-            for t in range(len(r.result)):
-                want = int(torch.argmax(masked_logits(
-                    fresh(toks[: len(r.tokens) + t]), cfg.vocab_size)))
-                if want != int(r.result[t]):
-                    raise AssertionError(f"{mode} {r.rid} token {t}: "
-                                         f"{r.result[t]} != prefill {want}")
+        kit.hold_history(mode, steps)
+        kit.hold_greedy(mode, [(r.rid, r.tokens, r.result) for r in reqs])
         log(f"  {mode}: {sum(len(t) for t in results[mode])} tokens; "
             f"{len(steps)} {'verify' if 'spec' in mode else 'decode'} "
             f"steps held to fresh prefills: worst |diff| / max|logit| = "
@@ -1111,9 +1326,7 @@ def phase_consistency(n_layers: int):
         pair.step()
     results["disagg"] = [r.result.tolist() for r in reqs]
     for side, steps in side_steps.items():
-        for key, got in by_history(steps).items():
-            held(f"disagg {side}", got, fresh(list(key)),
-                 f"disagg {side} step after {len(key)} tokens")
+        kit.hold_history(f"disagg {side}", steps)
     if results["disagg"] != results["paged"]:
         raise AssertionError(f"disagg greedy tokens differ from paged: "
                              f"{results['disagg']} != {results['paged']}")
@@ -1176,16 +1389,129 @@ def phase_consistency(n_layers: int):
     for toks, got in warm:
         held("prefix warm", got, fresh(toks),
              f"warm prefill of {len(toks)} tokens")
-    for key, got in by_history(steps).items():
-        held("prefix decode", got, fresh(list(key)),
-             f"prefix decode after {len(key)} tokens")
+    kit.hold_history("prefix decode", steps)
     log(f"  prefix cache: {eng.prefix_hit_tokens} prompt tokens hit; warm "
         f"prefills of {[len(t) for t, _ in warm]} tokens held to fresh "
         f"prefills: worst |diff| / max|logit| = {worst['prefix warm']:.2e};"
         f" decode steps {worst['prefix decode']:.2e} (limit 1e-3)")
-    del params, fresh_cache, eng
-    torch.cuda.empty_cache()
     return {"worst_rel_diff": worst}
+
+
+# phase 3 at the dense variants and the moe family: (arch, layers held
+# (the rest cut for time or memory), backends, capacity factor).  The moe
+# checks lift the capacity factor to 8, as the reference's own
+# prefill/decode test does: a prefill of S tokens can drop tokens that a
+# one-token decode never drops, so only without drops are the two the same
+# function
+ARCH_CONSISTENCY = (
+    ("starcoder2-7b", 32, ("slot", "paged", "spec"), None),
+    ("qwen3-32b", 8, ("slot", "paged"), None),
+    ("command-r-plus-104b", 4, ("paged", "spec"), None),
+    ("granite-moe-1b-a400m", 24, ("wave",), 8.0),
+    ("dbrx-132b", 2, ("wave",), 8.0),
+)
+_SCALES = ("scale", "q_norm", "k_norm")
+_BIASES = ("bias", "bq", "bk", "bv", "bo", "b_up", "b_down")
+
+
+def perturb(params, seed: int):
+    """Move every norm scale (+ N(0, 0.2)), norm bias and bias (N(0, 0.1))
+    off its start, in place, from a seeded generator: the port's init
+    starts biases at zero and scales at one, where a bias dropped or added
+    in the wrong place would not show.  Returns ``params``."""
+    import torch
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def walk(tree):
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                walk(v)
+            elif k in _SCALES or k in _BIASES:
+                sd = 0.2 if k in _SCALES else 0.1
+                v.add_(torch.randn(v.shape, generator=g, device=v.device)
+                       .to(v.dtype), alpha=sd)
+
+    walk(params)
+    return params
+
+
+def _free():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_arch_consistency(arch, n_layers, backends, capacity_factor):
+    """[3, dense variants and moe] ``arch`` at full width, ``n_layers``
+    layers, float32, on the port's seeded init with its biases and norms
+    perturbed: two requests served on each of ``backends`` (slot, paged,
+    spec with ``cfg.draft()``, or a wave engine), every decode, verify or
+    wave-decode logit row held to a fresh prefill over the same tokens
+    (a wave row's with its left pads) within 1e-3 x max|logit|, each
+    emitted token the greedy choice of a fresh prefill, and the tokens
+    identical across the backends."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serving import Engine, GenRequest
+    cfg = get_config(arch).replace(dtype="float32", n_layers=n_layers)
+    if capacity_factor is not None:
+        cfg = cfg.replace(capacity_factor=capacity_factor)
+    t0 = time.perf_counter()
+    params = perturb(registry.init(cfg, torch.Generator("cuda").manual_seed(
+        7), "cuda"), 8)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    log(f"  {cfg.name}: {cfg.n_layers} of {get_config(arch).n_layers} "
+        f"layers, fp32, {cfg.n_heads}/{cfg.n_kv_heads} heads at D="
+        f"{cfg.head_dim}: {gb:.1f} GB of weights in "
+        f"{time.perf_counter() - t0:.1f}s"
+        + (f"; capacity factor {capacity_factor}" if capacity_factor else ""))
+    kit = Consistency(cfg, params)
+    rng = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).numpy()
+               .astype("int32") for n in (24, 11)]
+    results = {}
+    for backend in backends:
+        kw = {"paged": dict(paged=True), "slot": {}, "wave": {},
+              "spec": dict(paged=True, spec_k=SPEC_K)}[backend]
+        if backend == "spec":
+            dcfg = cfg.draft()
+            kw["spec_draft"] = (dcfg, perturb(registry.init(
+                dcfg, torch.Generator("cuda").manual_seed(10_000), "cuda"),
+                9))
+        eng = Engine(cfg, params, max_batch=4, bucket=32, **kw)
+        steps, fed = [], []
+        if backend == "wave":
+            if eng.slot_decode:
+                raise AssertionError(f"{arch}: not a wave engine")
+            wave_recorder(eng, steps, fed)
+        else:
+            recorder(eng, {"paged": "_decode_paged", "slot": "_decode",
+                           "spec": "_verify"}[backend], steps)
+        reqs = [GenRequest(rid=f"c{i}", max_new=8, tokens=p)
+                for i, p in enumerate(prompts)]
+        eng.serve(reqs)
+        results[backend] = [r.result.tolist() for r in reqs]
+        n = kit.hold_history(backend, steps)
+        kit.hold_greedy(backend, [
+            (r.rid, fed[i] if fed else r.tokens, r.result)
+            for i, r in enumerate(reqs)])
+        log(f"  {arch} {backend}: {sum(len(t) for t in results[backend])} "
+            f"tokens; {len(steps)} {'verify' if backend == 'spec' else 'decode'}"
+            f" steps, {n} logit rows held to fresh prefills: worst |diff| / "
+            f"max|logit| = {kit.worst[backend]:.2e} (limit 1e-3)"
+            + (f"; accepted {eng.stats.spec_accepted}/"
+               f"{eng.stats.spec_drafted} drafts" if backend == "spec"
+               else ""))
+        del eng, kw
+    if any(t != results[backends[0]] for t in results.values()):
+        raise AssertionError(f"{arch}: greedy streams differ: {results}")
+    log(f"  {arch}: greedy tokens identical across {', '.join(backends)}")
+    return dict(layers=n_layers, backends=list(backends),
+                worst_rel_diff=dict(kit.worst))
 
 
 def _leaves(tree):
@@ -1197,14 +1523,16 @@ def _leaves(tree):
 
 
 # ------------------------------------------------------------ phase 4
-def recording_ops(ops, seen, widths):
+def recording_ops(ops, seen, widths, heads=None):
     """Wrap the attention entry points the model calls so that each call
     also notes what it was given: the prefill's (q shape, causal, window);
     once per decode or verify step (one lengths tensor serves all layers) a
-    host copy of its shapes, table and lengths; and every call's head width
-    in ``widths``.  Returns a function that puts the originals back."""
+    host copy of its shapes, table and lengths; every call's head width in
+    ``widths``, and with ``heads`` every call's (kernel, H, Hkv, D).
+    Returns a function that puts the originals back."""
     orig = {n: getattr(ops, n) for n in KERNEL_OPS.values()}
     last = [None]
+    heads = collections.Counter() if heads is None else heads
 
     def step(key, lengths, *record):
         if lengths is not last[0]:
@@ -1213,11 +1541,13 @@ def recording_ops(ops, seen, widths):
 
     def att(q, k, v, *, causal=True, window=None):
         widths["flash_attention", q.shape[3]] += 1
+        heads["flash_attention", q.shape[2], k.shape[2], q.shape[3]] += 1
         seen["flash_attention"].append((tuple(q.shape), causal, window))
         return orig["attention"](q, k, v, causal=causal, window=window)
 
     def decode(q, k_cache, v_cache, lengths, *, window=None):
         widths["flash_decode", q.shape[3]] += 1
+        heads["flash_decode", q.shape[2], k_cache.shape[2], q.shape[3]] += 1
         step("flash_decode", lengths, q.shape[3], k_cache.shape[1])
         return orig["decode"](q, k_cache, v_cache, lengths, window=window)
 
@@ -1226,6 +1556,7 @@ def recording_ops(ops, seen, widths):
         def call(q, *args):
             block_tables, lengths = args[-2:]
             widths[kernel, q.shape[3]] += 1
+            heads[kernel, q.shape[2], args[0].shape[2], q.shape[3]] += 1
             record = (() if kernel.startswith("paged_decode")
                       else (q.shape[1],))
             step(kernel, lengths, *record, block_tables.cpu().numpy())
@@ -1264,23 +1595,32 @@ def check_launches(label, launches, widths, phase):
                              f"{missing}")
 
 
-def phase_serve(phase, params, first=None):
-    """Serve the scenario on ``PHASE_MODE[phase]`` engines; check every
-    request's tokens and that every kernel entry of the phase launched;
-    print step times and rerun under the profiler."""
-    import torch
+def phase_cfg(phase):
+    """The bf16 config a serve phase runs (``PHASE_ARCH``'s layers)."""
     from repro_torch.configs import get_config
+    arch, layers, _ = PHASE_ARCH.get(phase, ("qwen3-8b", None, False))
+    cfg = get_config(arch)
+    return cfg.replace(dtype="bfloat16", n_layers=layers or cfg.n_layers)
+
+
+def phase_serve(phase, params, first=None):
+    """Serve the scenario on ``PHASE_MODE[phase]`` engines with the
+    per-node ``params``; check every request's tokens and that every kernel
+    entry of the phase launched; print step times and rerun under the
+    profiler."""
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     mode, quant = PHASE_MODE[phase]
-    cfg = get_config("qwen3-8b").replace(dtype="bfloat16", kv_quant=quant)
+    cfg = phase_cfg(phase).replace(kv_quant=quant)
     dev = torch.device("cuda")
     kw = dict(nodes=2, requests=8, max_new=8, seed=0, device=dev, mode=mode,
               spec_k=SPEC_K, params_fn=lambda i, c, d: params[i])
     seen = _seen()
     widths = collections.Counter()
+    heads = collections.Counter()
     handoffs = []
-    restore = recording_ops(ops, seen, widths)
+    restore = recording_ops(ops, seen, widths, heads)
     unrecord = recording_handoffs(handoffs)
     try:
         ops.reset_launch_counts()
@@ -1289,8 +1629,11 @@ def phase_serve(phase, params, first=None):
     finally:
         restore()
         unrecord()
-    label = ("int8 " if quant else "") + mode
+    label = ("int8 " if quant else "") + ("wave" if cfg.is_moe else mode)
     check_launches(label, launches, widths, phase)
+    log(f"  calls by (kernel, H, Hkv, D): "
+        f"{ {'/'.join(map(str, k)): n for k, n in heads.items()} }")
+    seen["heads"] = heads
     mine = {e: widths[k, d] for e, (k, d, _) in ENTRIES.items()
             if (k, d) in PATHS[phase]}
     if set(out["results"]) != {f"r{i}" for i in range(8)}:
@@ -1359,8 +1702,76 @@ def phase_serve(phase, params, first=None):
         step_floor_ms=floor_ms, tok_per_s=out["tok_per_s"],
         wall_s=out["wall_s"], launches=launches,
         launches_by_width={f"{k}@{d}": n for (k, d), n in widths.items()},
+        launches_by_heads={"/".join(map(str, k)): n
+                           for k, n in heads.items()},
+        config=dict(arch=cfg.name, layers=cfg.n_layers,
+                    heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim]),
         **extra, **profile)))
     return out, mine, seen
+
+
+def phase_serve_arch(phase):
+    """[4h-4k] Seed the phase's weights (``PHASE_ARCH``: one set per node,
+    or one shared; biases and norms perturbed), print its config and cut,
+    serve it (``phase_serve``) and free the weights."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = phase_cfg(phase)
+    arch, _, shared = PHASE_ARCH[phase]
+    dev = torch.device("cuda")
+    params = [perturb(serve.seeded_params(i, cfg, dev), 20 + i)
+              for i in range(1 if shared else 2)]
+    if shared:
+        params = params * 2
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params[0])) / 1e9
+    log(f"  {cfg.name}: {cfg.n_layers} of {get_config(arch).n_layers} "
+        f"layers, bf16, {cfg.n_heads}/{cfg.n_kv_heads} heads at D="
+        f"{cfg.head_dim}, {gb:.1f} GB of weights "
+        f"{'shared by both nodes' if shared else 'per node'}")
+    _, launches, seen = phase_serve(phase, params)
+    del params
+    _free()
+    return launches, seen
+
+
+def phase_arch_shapes(seen) -> dict:
+    """[5, phases 4h-4k] Each kernel of a new serve phase's path against
+    its plain version at the shapes and head ratio that phase gave it
+    (bfloat16): the most frequent prefill shape and the decode or verify
+    step of median attended length."""
+    out = {}
+    for phase in PHASE_ARCH:
+        heads = {(k, d): (h, hkv, d) for k, h, hkv, d in seen[phase]["heads"]}
+        for kernel, d in sorted(PATHS[phase]):
+            hd = heads[kernel, d]
+            if kernel == "flash_attention":
+                (b, s, _, _), causal, window = _most_common_prefill(
+                    seen[phase][kernel], d)
+                r = prefill_case("main", b, s, "bfloat16", heads=hd,
+                                 causal=causal, window=window, iters=100)
+            elif kernel == "flash_decode":
+                _, s, ln = _median([st for st in seen[phase][kernel]
+                                    if st[0] == d],
+                                   f"D={d} decode (phase {phase})")
+                r = decode_case("main", s, [int(x) for x in ln], "bfloat16",
+                                heads=hd, iters=100)
+            elif kernel == "paged_decode":
+                bt, ln = _median(seen[phase][kernel],
+                                 f"paged decode (phase {phase})")
+                r = paged_case("main", _dense_pages(bt), [int(x) for x in ln],
+                               "bfloat16", iters=100, heads=hd)
+            else:
+                kq, bt, ln = _median(seen[phase][kernel],
+                                     f"{kernel} (phase {phase})")
+                r = verify_case("main", _dense_pages(bt),
+                                [int(x) for x in ln], kq, "bfloat16",
+                                iters=100, heads=hd)
+            r = dict(with_ratios(r), phase=phase, heads=list(hd))
+            show(f"{kernel}@{d} {phase}", r)
+            out.setdefault(phase, {})[f"{kernel}@{d}"] = r
+    log("arch_main_cases " + json.dumps(out))
+    return out
 
 
 def recording_handoffs(handoffs):
@@ -1678,9 +2089,18 @@ def main() -> int:
         log(f"  sass {name}: {counts}")
     log("[2] kernels vs their plain versions" + at())
     phase_kernels()
+    log("[2, new head ratios] rows 1-4 at rep 9, 12, 8, 6 and D=64 rep 2"
+        + at())
+    phase_ratios()
     log("[3] model consistency: paged, slot and verify logits vs fresh "
         "prefills" + at())
     phase_consistency(n_layers=36)
+    _free()
+    for arch, n_layers, backends, cf in ARCH_CONSISTENCY:
+        log(f"[3, {arch}] {', '.join(backends)} logits vs fresh prefills"
+            + at())
+        phase_arch_consistency(arch, n_layers, backends, cf)
+        _free()
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     cfg = get_config("qwen3-8b").replace(dtype="bfloat16")
@@ -1709,10 +2129,19 @@ def main() -> int:
     _, launches["4g"], seen["4g"] = phase_serve("4g", params,
                                                 first=paged_out)
     del params
-    torch.cuda.empty_cache()
+    _free()
+    for phase, title in (
+            ("4h", "starcoder2-7b on paged engines (--paged)"),
+            ("4i", "qwen3-32b on slot engines, one set of weights"),
+            ("4j", "command-r-plus-104b on speculative engines (--spec), "
+                   "one set of weights"),
+            ("4k", "granite-moe-1b-a400m on wave engines")):
+        log(f"[{phase}] serve {title}" + at())
+        launches[phase], seen[phase] = phase_serve_arch(phase)
     log("[5] kernels vs their plain versions at the serve phases' shapes"
         + at())
     main_cases = phase_main_shapes(seen)
+    arch_cases = phase_arch_shapes(seen)
     kernels = []
     for entry, (kernel, d, phase) in ENTRIES.items():
         meta, r = ops.KERNELS[kernel], main_cases[entry]
@@ -1727,7 +2156,17 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             vs_library=r["vs_library"], bound_share=r["bound_share"],
             call_ms=r["call_ms"], timed_by=r["timed_by"], shape=r["shape"],
-            dtype=r["dtype"]))
+            dtype=r["dtype"],
+            # the new configs' serve phases that run it, each with its
+            # launches there and its times at that phase's shapes
+            arch_phases={
+                ph: dict(launches=launches[ph][entry],
+                         **{k: cases[f"{kernel}@{d}"][k] for k in (
+                             "heads", "shape", "max_abs_err", "ms",
+                             "plain_ms", "library_ms", "bound_ms",
+                             "bound_by", "vs_library", "bound_share")})
+                for ph, cases in arch_cases.items()
+                if f"{kernel}@{d}" in cases}))
     log(f"total {time.perf_counter() - t_all:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,0 +1,19 @@
+"""StarCoder2-7B [arXiv:2402.19173] — dense, GQA kv=4, RoPE, LayerNorm+GeLU+bias."""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-7b",
+    family="dense",
+    n_layers=32,
+    d_model=4608,
+    n_heads=36,
+    n_kv_heads=4,
+    d_ff=18432,
+    vocab_size=49152,
+    head_dim=128,
+    norm_type="layernorm",
+    act="gelu",
+    use_bias=True,
+    rope_theta=1e5,
+)

@@ -35,6 +35,22 @@ def apply_norm(x: torch.Tensor, p: dict, norm_type: str) -> torch.Tensor:
     return rms_norm(x, p["scale"])
 
 
+def norm_params(shape, norm_type: str, dtype: torch.dtype,
+                device: torch.device | str) -> dict:
+    """A norm's fresh parameters of ``shape`` (``(d,)``, or ``(L, d)``
+    stacked on layers): unit scale, plus a zero bias for LayerNorm, as the
+    reference starts them."""
+    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if norm_type == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GeLU, the tanh approximation (``jax.nn.gelu(approximate=True)``)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 def rope_freqs(head_dim: int, theta: float,
                device: torch.device | str = "cpu") -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,

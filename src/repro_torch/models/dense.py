@@ -1,16 +1,20 @@
-"""Dense decoder-only transformer (the qwen3 family) on tensors.
+"""Dense decoder-only transformer family on tensors.
 
-Port of the serving paths of ``repro.models.dense``: ``init``, the
-full-sequence ``apply``, right-padded ``prefill`` with
+Port of the serving paths of ``repro.models.dense`` for every dense
+layout of ``repro.configs``: qwen3 (RMSNorm, SwiGLU, qk-norm),
+starcoder2 (LayerNorm, GeLU, biases), command-r-plus (LayerNorm, parallel
+attention/MLP block, tied embeddings) and their sliding-window variants:
+``init``, the full-sequence ``apply``, right-padded ``prefill`` with
 ``last_positions``, the slot cache (``init_cache``, ``decode_step`` with
-(B,) lengths), the KV page pools
-(``init_paged_pools``, ``prefill_to_pages``, ``_scatter_pool_writes``),
-``paged_decode_step`` and the speculative ``paged_verify_step``, each
-with its int8 form (``cfg.kv_quant``: int8 K/V plus bf16 per-(token, head)
-scales, quantized on write).  Public functions keep the reference's
-layouts: weights ``(d_in, d_out)`` stacked on a leading layer axis, slot
-caches ``(L, B, C, Hkv, dh)``, pools ``(L, P, page, Hkv, dh)``, scales
-``(..., 1)``.
+(B,) lengths, or one scalar length for the lock-step wave), the KV page
+pools (``init_paged_pools``, ``prefill_to_pages``,
+``_scatter_pool_writes``), ``paged_decode_step`` and the speculative
+``paged_verify_step``, each with its int8 form (``cfg.kv_quant``: int8
+K/V plus bf16 per-(token, head) scales, quantized on write).  Public
+functions keep the reference's layouts: weights ``(d_in, d_out)`` stacked
+on a leading layer axis, slot caches ``(L, B, C, Hkv, dh)``, pools
+``(L, P, page, Hkv, dh)``, scales ``(..., 1)``.  M-RoPE and embedding
+inputs (the vlm family) are ROADMAP Queue A item 7.
 
 Attention goes through ``kernels.ops``: the prefill through the prefill
 kernel (where the reference calls its jnp ``flash_attention``), a slot
@@ -30,7 +34,7 @@ unchanged.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,15 +57,17 @@ def init(cfg: ModelConfig, generator: torch.Generator,
          device: torch.device | str, dtype: Optional[torch.dtype] = None
          ) -> Dict:
     """Random weights with the reference's distributions (normal
-    ``1/sqrt(d_in)`` projections, normal 0.02 embeddings, unit norms),
-    drawn from ``generator`` on ``device`` in ``dtype`` (default
-    ``cfg.dtype``).  Only the qwen3 layout (RMSNorm, SwiGLU, qk-norm, no
-    bias, sequential block, untied head) is ported."""
-    if (cfg.norm_type != "rmsnorm" or cfg.act != "swiglu" or cfg.use_bias
-            or cfg.parallel_block or cfg.tie_embeddings or cfg.mrope):
+    ``1/sqrt(d_in)`` projections, normal 0.02 embeddings, unit norm scales,
+    zero biases and LayerNorm biases), drawn from ``generator`` on
+    ``device`` in ``dtype`` (default ``cfg.dtype``), for every dense layout
+    the reference's switches make: RMSNorm or LayerNorm, SwiGLU or GeLU
+    (with ``b_up``/``b_down`` under ``use_bias``), the q/k/v/o biases,
+    qk-norm, the parallel block (no ``ln2``) and tied embeddings (no
+    ``lm_head``).  M-RoPE (the vlm family) is ROADMAP Queue A item 7."""
+    if cfg.mrope or cfg.embeds_input:
         raise NotImplementedError(
-            f"{cfg.name}: only the qwen3 dense layout is ported; the other "
-            f"dense variants are ROADMAP Queue A item 2")
+            f"{cfg.name}: M-RoPE and embedding inputs (the vlm family) are "
+            f"ROADMAP Queue A item 7")
     dt = dtype or _dt(cfg)
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
 
@@ -71,22 +77,35 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
     lyr: Dict = {
-        "ln1": {"scale": ones(L, d)},
+        "ln1": cm.norm_params((L, d), cfg.norm_type, dt, device),
         "wq": w(d, cfg.q_dim), "wk": w(d, cfg.kv_dim), "wv": w(d, cfg.kv_dim),
         "wo": w(cfg.q_dim, d),
-        "ln2": {"scale": ones(L, d)},
-        "w_gate": w(d, f), "w_up": w(d, f), "w_down": w(f, d),
     }
+    if not cfg.parallel_block:
+        lyr["ln2"] = cm.norm_params((L, d), cfg.norm_type, dt, device)
+    if cfg.act == "swiglu":
+        lyr.update(w_gate=w(d, f), w_up=w(d, f), w_down=w(f, d))
+    else:
+        lyr.update(w_up=w(d, f), w_down=w(f, d))
+        if cfg.use_bias:
+            lyr.update(b_up=zeros(L, f), b_down=zeros(L, d))
     if cfg.qk_norm:
         lyr["q_norm"] = ones(L, cfg.head_dim)
         lyr["k_norm"] = ones(L, cfg.head_dim)
-    return {
-        "embed": cm.embed_init(generator, cfg.padded_vocab, d, dt, device),
-        "final_norm": {"scale": ones(d)},
-        "lm_head": cm.dense_init(generator, (d, cfg.padded_vocab), dt, device),
-        "layers": lyr,
-    }
+    if cfg.use_bias:
+        lyr.update(bq=zeros(L, cfg.q_dim), bk=zeros(L, cfg.kv_dim),
+                   bv=zeros(L, cfg.kv_dim), bo=zeros(L, d))
+    p = {"embed": cm.embed_init(generator, cfg.padded_vocab, d, dt, device),
+         "final_norm": cm.norm_params((d,), cfg.norm_type, dt, device),
+         "layers": lyr}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = cm.dense_init(generator, (d, cfg.padded_vocab), dt,
+                                     device)
+    return p
 
 
 def _layer(params: Dict, l: int) -> Dict:
@@ -101,9 +120,12 @@ def _project_qkv(lp: Dict, cfg: ModelConfig, h: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """h: (B, S, d) -> roped q (B, S, H, dh), k/v (B, S, Hkv, dh)."""
     b, s, _ = h.shape
-    q = (h @ lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if cfg.use_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = cm.rms_norm(q, lp["q_norm"])
         k = cm.rms_norm(k, lp["k_norm"])
@@ -112,30 +134,51 @@ def _project_qkv(lp: Dict, cfg: ModelConfig, h: torch.Tensor,
     return q, k, v.contiguous()
 
 
-def _mlp(lp: Dict, h: torch.Tensor) -> torch.Tensor:
-    return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+def _mlp(lp: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    u = h @ lp["w_up"]
+    if cfg.use_bias:
+        u = u + lp["b_up"]
+    out = cm.gelu(u) @ lp["w_down"]
+    return out + lp["b_down"] if cfg.use_bias else out
 
 
 def _finish_block(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  attn: torch.Tensor) -> torch.Tensor:
-    """Output projection, residual, then the MLP sub-block."""
+                  h: torch.Tensor, attn: torch.Tensor,
+                  mlp: Callable = _mlp) -> torch.Tensor:
+    """Output projection (plus ``bo``) and residual, then the MLP (``mlp``:
+    this family's, or the moe family's): over ``ln2`` of the new residual
+    stream, or for a parallel block over the block's input norm ``h``
+    beside the attention (``x + attn + mlp(h)``)."""
     b, s = x.shape[:2]
-    x = x + attn.reshape(b, s, cfg.q_dim) @ lp["wo"]
-    return x + _mlp(lp, cm.apply_norm(x, lp["ln2"], cfg.norm_type))
+    attn = attn.reshape(b, s, cfg.q_dim) @ lp["wo"]
+    if cfg.use_bias:
+        attn = attn + lp["bo"]
+    if cfg.parallel_block:
+        return x + attn + mlp(lp, cfg, h)
+    x = x + attn
+    return x + mlp(lp, cfg, cm.apply_norm(x, lp["ln2"], cfg.norm_type))
 
 
-def logits_of(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["lm_head"]
+def logits_of(params: Dict, cfg: ModelConfig, x: torch.Tensor
+              ) -> torch.Tensor:
+    """The head: ``embed.T`` when the embeddings are tied, else
+    ``lm_head``."""
+    return x @ (params["embed"].T if cfg.tie_embeddings
+                else params["lm_head"])
 
 
 # ------------------------------------------------------------------ forward
 def _forward_blocks(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-                    kvs: Optional[Dict[str, list]] = None) -> torch.Tensor:
+                    kvs: Optional[Dict[str, list]] = None,
+                    mlp: Callable = _mlp) -> torch.Tensor:
     """Embed ``tokens`` (B, S) and run every block over the whole sequence,
     attention through the prefill kernel (causal, the config's window);
     returns the hidden states (B, S, d) before the final norm.  With
     ``kvs`` each layer's K/V (quantized with ``cfg.kv_quant``) are appended
-    to it by name.  ``prefill`` and ``apply`` share this loop."""
+    to it by name.  ``prefill`` and ``apply`` share this loop, and the
+    moe family runs it with its own ``mlp``."""
     b, s = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -144,7 +187,7 @@ def _forward_blocks(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
         q, k, v = _project_qkv(lp, cfg, h, positions)
         attn = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
-        x = _finish_block(lp, cfg, x, attn)
+        x = _finish_block(lp, cfg, x, h, attn, mlp)
         if kvs is None:
             continue
         out = {"k": k, "v": v}
@@ -161,8 +204,8 @@ def apply(params: Dict, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     of ``batch["tokens"]`` (B, S), as the reference's ``apply`` returns
     them.  The KV is not kept."""
     x = _forward_blocks(params, cfg, batch["tokens"])
-    return logits_of(params, cm.apply_norm(x, params["final_norm"],
-                                           cfg.norm_type))
+    x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
+    return logits_of(params, cfg, x)
 
 
 # ------------------------------------------------------------------ prefill
@@ -172,39 +215,54 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt, build the KV cache, return last-position logits.
 
-    tokens: (B, S) right-padded prompts (pads are causally inert).  The
-    cache holds ``capacity`` positions (default S; zero-padded past S), or
-    for a sliding-window config a ring of ``sliding_window`` positions
-    where position p sits at slot p % window.  ``last_positions`` ((B,))
-    takes each row's logits at its own final real token.  Returns
-    (logits (B, 1, padded_vocab), {"k", "v": (L, B, cap, Hkv, dh),
-    "length": S}); with ``cfg.kv_quant`` the returned K/V are int8 plus
+    tokens: (B, S) prompts, right-padded (pads are causally inert) or, on
+    the wave path, left-padded.  The cache holds ``capacity`` positions
+    (default S; zero-padded past S), or for a sliding-window config a ring
+    of ``sliding_window`` positions where position p sits at slot
+    p % window.  ``last_positions`` ((B,)) takes each row's logits at its
+    own final real token.  Returns (logits (B, 1, padded_vocab),
+    {"k", "v": (L, B, cap, Hkv, dh), "length": S, a () int32 tensor});
+    with ``cfg.kv_quant`` the returned K/V are int8 plus
     "k_scale"/"v_scale" (L, B, cap, Hkv, 1) bf16 (attention itself ran on
     the fp k/v).
     """
     b, s = tokens.shape
-    if cfg.sliding_window is None:
-        cap = max(s, capacity or s)
-    else:
-        cap = min(cfg.sliding_window, capacity or cfg.sliding_window)
+    cap = _capacity(cfg, s, capacity)
     kvs: Dict[str, list] = {}
     x = _forward_blocks(params, cfg, tokens, kvs)
-
-    def ring(a: torch.Tensor) -> torch.Tensor:
-        # (L, B, S, Hkv, dh) -> (L, B, cap, Hkv, dh)
-        if cap <= s:
-            return torch.roll(a[:, :, -cap:], shifts=s % cap, dims=2)
-        return F.pad(a, (0, 0, 0, 0, 0, cap - s))
-
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
     if last_positions is None:
         x_last = x[:, -1:]
     else:
         x_last = x[torch.arange(b, device=x.device),
                    last_positions.long()][:, None]
+    cache = _cache_of(kvs, cap, s, x.device)
+    return logits_of(params, cfg, x_last), cache
+
+
+def _capacity(cfg: ModelConfig, s: int, capacity: Optional[int]) -> int:
+    """A prefill cache's positions: ``capacity`` (at least the prompt's
+    ``s``), or a window config's ring of at most ``sliding_window``."""
+    if cfg.sliding_window is None:
+        return max(s, capacity or s)
+    return min(cfg.sliding_window, capacity or cfg.sliding_window)
+
+
+def _cache_of(kvs: Dict[str, list], cap: int, s: int,
+              device: torch.device) -> Dict:
+    """The per-layer K/V lists of an ``s``-token prefill stacked into a
+    cache of ``cap`` positions: zero-padded past ``s``, or, when ``cap <=
+    s``, the last ``cap`` positions ring-rotated so that position p sits
+    at slot p % cap; plus "length": s."""
+    def ring(a: torch.Tensor) -> torch.Tensor:
+        # (L, B, S, Hkv, dh) -> (L, B, cap, Hkv, dh)
+        if cap <= s:
+            return torch.roll(a[:, :, -cap:], shifts=s % cap, dims=2)
+        return F.pad(a, (0, 0, 0, 0, 0, cap - s))
+
     cache = {name: ring(torch.stack(a)) for name, a in kvs.items()}
-    cache["length"] = s
-    return logits_of(params, x_last), cache
+    cache["length"] = torch.tensor(s, dtype=torch.int32, device=device)
+    return cache
 
 
 # ---------------------------------------------------------------- slot decode
@@ -232,27 +290,27 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
-                token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-    """One decode step against a slot cache, each row at its own depth.
+                token: torch.Tensor, mlp: Callable = _mlp
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step against a slot cache (``mlp``: as in
+    ``_forward_blocks``).
 
-    cache: {"k"/"v": (L, B, C, Hkv, dh), "length": (B,) int32}; token:
-    (B, 1).  Row b's new KV goes to slot ``length[b] % C`` of its cache row,
-    in place, then it attends its ``min(length[b] + 1, C)`` valid
-    positions.  With ``cfg.kv_quant`` the cache is int8 plus
+    cache: {"k"/"v": (L, B, C, Hkv, dh), "length": (B,) or () int32};
+    token: (B, 1).  With (B,) lengths (slot batching) each row decodes at
+    its own depth; a scalar length (the lock-step wave) is broadcast to
+    every row, so both go through the same contiguous decode kernel.  Row
+    b's new KV goes to slot ``length[b] % C`` of its cache row, in place
+    (a window config's ring), then it attends its ``min(length[b] + 1, C)``
+    valid positions.  With ``cfg.kv_quant`` the cache is int8 plus
     "k_scale"/"v_scale": the new KV is quantized on write and the layer's
     cache dequantized to ``cfg.dtype`` before the decode kernel, as the
     reference does.  Returns (logits (B, 1, padded_vocab), cache with
-    length + 1).  The reference's scalar-length lock-step branch (wave
-    batching and the sequence-sharded decode) is ROADMAP Queue A items 7
-    and 10."""
+    length + 1, of the length's own shape).  The reference's
+    sequence-sharded decode is ROADMAP Queue A item 10."""
     length = cache["length"]
-    if length.ndim != 1:
-        raise NotImplementedError(
-            "scalar cache length (lock-step wave decode): ROADMAP Queue A "
-            "items 7 and 10; the slot engine passes (B,) lengths")
     x = params["embed"][token]
     cap = cache["k"].shape[2]
-    lens = length.long()
+    lens = length.long().reshape(-1).expand(token.shape[0])
     rows = torch.arange(lens.shape[0], device=lens.device)
     slot = lens % cap
     n_valid = torch.clamp(lens + 1, max=cap).to(torch.int32)
@@ -271,10 +329,10 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
             kc = kv_dequantize(kc, cache["k_scale"][l], _dt(cfg))
             vc = kv_dequantize(vc, cache["v_scale"][l], _dt(cfg))
         attn = ops.decode(q, kc, vc, n_valid)
-        x = _finish_block(lp, cfg, x, attn)
+        x = _finish_block(lp, cfg, x, h, attn, mlp)
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
-    return logits_of(params, x), {**cache,
-                                  "length": (length + 1).to(length.dtype)}
+    return logits_of(params, cfg, x), {
+        **cache, "length": (length + 1).to(length.dtype)}
 
 
 # --------------------------------------------------------------- paged pools
@@ -388,9 +446,9 @@ def paged_decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
         _scatter_pool_writes(pools, l, phys_page, page_slot, k, v,
                              squeeze=True)
         attn = _paged_attention(pools, l, q, bt, attend, verify=False)
-        x = _finish_block(lp, cfg, x, attn)
+        x = _finish_block(lp, cfg, x, h, attn)
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
-    return logits_of(params, x), {**pools, "block_tables": bt,
+    return logits_of(params, cfg, x), {**pools, "block_tables": bt,
                                   "lengths": attend}
 
 
@@ -427,7 +485,7 @@ def paged_verify_step(params: Dict, cfg: ModelConfig, cache: Dict,
         _scatter_pool_writes(pools, l, phys_page, page_slot, k, v,
                              squeeze=False)
         attn = _paged_attention(pools, l, q, bt, lengths, verify=True)
-        x = _finish_block(lp, cfg, x, attn)
+        x = _finish_block(lp, cfg, x, h, attn)
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
-    return logits_of(params, x), {**pools, "block_tables": bt,
+    return logits_of(params, cfg, x), {**pools, "block_tables": bt,
                                   "lengths": lengths}

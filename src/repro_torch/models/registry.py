@@ -1,19 +1,20 @@
 """Family registry of the port: the uniform interface the engine calls.
 
-Port of ``repro.models.registry`` for the dense family's serving paths:
-the full-sequence forward (``apply_logits``), slot decode, paged decode
-and the speculative paged verify.  The other families (moe, hybrid, ssm,
-audio, vlm) are ROADMAP Queue A item 7; ``apply_with_aux`` waits for
-training (item 8).
+Port of ``repro.models.registry`` for the dense family (the full-sequence
+forward, slot decode, paged decode and the speculative paged verify) and
+the moe family (the full-sequence forward with its aux loss, and the
+lock-step decode the engine's wave path runs).  ``apply_logits`` drops
+the aux loss, ``apply_with_aux`` keeps it.  The other families (vlm,
+hybrid, ssm, audio) are ROADMAP Queue A item 7.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models import dense
+from repro_torch.models import dense, moe
 from repro_torch.models.config import ModelConfig
 
 
@@ -22,6 +23,7 @@ class Family(NamedTuple):
     apply: Callable             # (params, cfg, batch) -> (B, S, V) logits
     prefill: Callable           # -> (last logits, contiguous cache)
     decode_step: Callable       # (params, cfg, cache, token) -> logits, cache
+    has_aux: bool = False       # apply returns (logits, aux loss)
     slot_decode: bool = False   # per-row cache lengths + prefill
                                 # last_positions (slot continuous batching)
     # paged-KV capability: set together or not at all
@@ -39,6 +41,8 @@ FAMILIES: Dict[str, Family] = {
                     init_paged_pools=dense.init_paged_pools,
                     prefill_to_pages=dense.prefill_to_pages,
                     paged_verify=dense.paged_verify_step),
+    "moe": Family(moe.init, moe.apply, moe.prefill, moe.decode_step,
+                  has_aux=True),
 }
 
 
@@ -57,5 +61,18 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 def apply_logits(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     """Full-sequence forward returning the logits at every position of
-    ``batch["tokens"]`` (the dense family has no auxiliary output)."""
-    return get_family(cfg).apply(params, cfg, batch)
+    ``batch["tokens"]`` (an aux loss is dropped)."""
+    fam = get_family(cfg)
+    out = fam.apply(params, cfg, batch)
+    return out[0] if fam.has_aux else out
+
+
+def apply_with_aux(params, cfg: ModelConfig, batch: Dict
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward returning (logits, aux loss); a family without
+    an aux loss returns a float32 zero."""
+    fam = get_family(cfg)
+    out = fam.apply(params, cfg, batch)
+    if fam.has_aux:
+        return out
+    return out, torch.zeros((), dtype=torch.float32, device=out.device)

@@ -1,7 +1,7 @@
 """A small batched serving engine on PyTorch -- the node's Model Manager
 backend.
 
-Port of ``repro.serving.engine`` in its three modes:
+Port of ``repro.serving.engine`` in its modes:
 
 * **slot** (``paged=False``, the default; DESIGN.md §6.1): a persistent
   decode cache of ``max_batch`` row slots, each resident sequence decoding
@@ -47,9 +47,15 @@ A paged engine is also either end of a disaggregated pair (DESIGN.md
 prefilled row as a ``KVHandoff`` (copies of its pages and its next-token
 logits) and ``accept_handoff`` lands one in this engine's own pool.
 
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
-item: families without slot decode, which the reference serves by
-left-padded wave batching (Queue A item 7).
+Families without per-row cache depths (moe) and sliding-window configs
+run the reference's **left-padded lock-step waves** instead
+(``_generate_wave``, entered from ``serve`` and ``step``): up to
+``max_batch`` prompts left-padded with ``eos_id``, one prefill, then
+decode steps at one shared cache length until every row is done.  Such an
+engine refuses ``paged=True`` (and so the speculative, prefix-cache and
+disaggregated backends) with the reference's ``ValueError``.  The families
+the port does not have yet (vlm, hybrid, ssm, audio) raise at
+``registry.get_family``, naming ROADMAP Queue A item 7.
 
 Wall times are measured by ``Tracer.wall`` blocks that end in a device
 synchronisation, because they feed ``EngineStats`` and so
@@ -173,8 +179,9 @@ def _sync(device: torch.device) -> None:
 
 
 class Engine:
-    """Continuous batching over the PyTorch dense model: slot, paged or
-    speculative (see the module docstring)."""
+    """Continuous batching over the PyTorch dense model (slot, paged or
+    speculative), or left-padded lock-step waves for the moe family and
+    window configs (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  bucket: int = 64, seed: int = 0,
@@ -186,18 +193,6 @@ class Engine:
                  spec_draft: Optional[Tuple[ModelConfig, Dict]] = None,
                  spec_k: int = _SPEC_K) -> None:
         fam = registry.get_family(cfg)
-        # right-padding is only inert with a full cache: a sliding-window
-        # ring keeps the last `window` positions of the PADDED sequence, so
-        # the reference serves window configs by left-padded wave batching
-        if not (fam.slot_decode and cfg.sliding_window is None):
-            if paged:
-                raise ValueError("paged KV requires full attention (the "
-                                 "ring cache of a window config is "
-                                 "slot-mode only)")
-            raise NotImplementedError(
-                f"{cfg.name}: left-padded wave batching (families without "
-                f"slot decode, sliding-window configs) is ROADMAP Queue A "
-                f"item 7")
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
@@ -210,6 +205,12 @@ class Engine:
         # executor forwards the node id the Node binds onto it
         self.owner = ""
         self.eos_id = cfg.eos_id
+        # right-padding is only inert with a full cache: a sliding-window
+        # ring keeps the last `window` positions of the PADDED sequence, so
+        # trailing pads would evict real in-window KV.  Window configs, and
+        # families without per-row cache depths, take the left-padded
+        # lock-step wave path (``_generate_wave``)
+        self.slot_decode = fam.slot_decode and cfg.sliding_window is None
         self._prefill = fam.prefill
         self._decode = fam.decode_step
 
@@ -224,6 +225,10 @@ class Engine:
         self.paged = bool(paged)
         self.page_size = int(page_size)
         if self.paged:
+            if not (self.slot_decode and fam.paged_decode is not None):
+                raise ValueError(
+                    "paged KV requires a paged-capable slot-decode family "
+                    "(dense/vlm with full attention)")
             self._decode_paged = fam.paged_decode
             self._scatter_pages = fam.prefill_to_pages
             self._init_pools = fam.init_paged_pools
@@ -394,7 +399,10 @@ class Engine:
         return snap
 
     def serve(self, reqs: List[GenRequest]) -> List[GenRequest]:
-        """Submit ``reqs`` and pump steps until the engine drains."""
+        """Submit ``reqs`` and pump steps until the engine drains (a wave
+        engine serves them in waves of ``max_batch``, without the queue)."""
+        if not self.slot_decode:
+            return self._serve_wave(reqs)
         for r in reqs:
             self.submit(r)
         while self.has_work():
@@ -1168,7 +1176,10 @@ class Engine:
     def step(self) -> List[GenRequest]:
         """One engine iteration: sample a token for every resident sequence,
         retire finished ones, prefill admissions into freed slots, then run
-        one batched decode step for the sequences that continue."""
+        one batched decode step for the sequences that continue.  A wave
+        engine serves the next ``max_batch`` queued requests to the end."""
+        if not self.slot_decode:
+            return self._step_wave()
         if self.spec:
             return self._step_spec()
         self._admit()
@@ -1311,3 +1322,83 @@ class Engine:
         self.stats.decode_steps += 1
         self.stats.spec_steps += 1
         return finished
+
+    # ------------------------------------------------- left-padded waves
+    def _step_wave(self) -> List[GenRequest]:
+        if not self._queue:
+            return []
+        wave, self._queue = (self._queue[:self.max_batch],
+                             self._queue[self.max_batch:])
+        return self._generate_wave(wave)
+
+    def _serve_wave(self, reqs: List[GenRequest]) -> List[GenRequest]:
+        out: List[GenRequest] = []
+        for i in range(0, len(reqs), self.max_batch):
+            out.extend(self._generate_wave(reqs[i: i + self.max_batch]))
+        return out
+
+    def _generate_wave(self, reqs: List[GenRequest]) -> List[GenRequest]:
+        """Left-padded lock-step decode, for families without per-row
+        cache depths and for window configs: the prompts are left-padded
+        with ``eos_id`` to ``pad(max prompt)`` (the pads are attended and,
+        in an MoE layer, take expert capacity, as in the reference), the
+        cache holds ``plen + pad(max_new)`` positions, and every row decodes
+        at one shared depth until each is done (EOS or budget).  A result
+        ends at its first EOS, keeping at least one token."""
+        assert len(reqs) <= self.max_batch
+        n = len(reqs)
+        plen = self._pad_bucket(max(len(r.tokens) for r in reqs))
+        max_new = max(r.max_new for r in reqs)
+        toks = np.full((n, plen), self.eos_id, np.int64)
+        for i, r in enumerate(reqs):
+            toks[i, plen - len(r.tokens):] = r.tokens     # left-pad
+        cap = plen + self._pad_bucket(max_new)
+        dev = self.device
+        with get_tracer().wall("engine.prefill", who=self.owner, path="wave",
+                               rows=n, tokens=plen * n) as sp:
+            logits, cache = self._prefill(self.params, self.cfg,
+                                          torch.from_numpy(toks).to(dev),
+                                          capacity=cap)
+            _sync(dev)
+        self.stats.prefill_wall_s += sp.dt
+        self.stats.prefill_tokens += plen * n
+        self.stats.batches += 1
+        started = wall_now()
+        for r in reqs:
+            r.started_at = started
+
+        out = np.zeros((n, max_new), np.int32)
+        done = np.zeros(n, bool)
+        temps_np = np.array([r.temperature for r in reqs], np.float32)
+        # all-greedy waves keep sample()'s scalar path
+        temps = (0.0 if (temps_np <= 0.0).all()
+                 else torch.from_numpy(temps_np).to(dev))
+        budgets = np.array([r.max_new for r in reqs])
+        for step in range(max_new):
+            cur = sample(self.generator, logits, temperature=temps,
+                         vocab_size=self.cfg.vocab_size)
+            out[:, step] = cur[:, 0].cpu().numpy()
+            if step == 0:
+                now = wall_now()
+                for r in reqs:
+                    r.first_token_at = now
+            done |= out[:, step] == self.eos_id
+            done |= step + 1 >= budgets
+            if done.all():
+                break
+            with get_tracer().wall("engine.decode_step", who=self.owner,
+                                   batch=int((~done).sum())) as sp:
+                logits, cache = self._decode(self.params, self.cfg, cache,
+                                             cur)
+                _sync(dev)
+            self.stats.decode_wall_s += sp.dt
+            self.stats.decode_tokens += int((~done).sum())
+            self.stats.decode_steps += 1
+        for i, r in enumerate(reqs):
+            row = out[i, :r.max_new]
+            hit = row == self.eos_id
+            end = int(np.argmax(hit)) if hit.any() else r.max_new
+            r.result = row[:max(end, 1)]
+            r.finished_at = wall_now()
+        self.stats.served += n
+        return reqs

@@ -225,6 +225,12 @@ GPU_DECODE = [(b, s, h, hkv, dd, (clen,) * b, win)
     (4, 72, 2, 1, 64, (25, 1, 33, 0), None),       # the draft's
     (3, 300, 32, 8, 128, (300, 0, 17), 64),
     (2, 100, 16, 1, 64, (200, 3), 50),             # window past the cache
+    # the dense and moe configs' head ratios (the wave decode: one length)
+    (4, 64, 36, 4, 128, (25, 1, 33, 0), None),     # starcoder2-7b, rep 9
+    (4, 64, 64, 8, 128, (25, 1, 33, 0), None),     # qwen3-32b, rep 8
+    (2, 300, 96, 8, 128, (300, 17), 64),           # rep 12, window
+    (4, 64, 48, 8, 128, (40,) * 4, None),          # dbrx-132b wave, rep 6
+    (4, 64, 16, 8, 64, (40,) * 4, None),           # granite-moe wave, rep 2
 ]
 
 
@@ -305,6 +311,12 @@ GPU_VERIFY = [(b, kq, h, hkv, 128, page, lengths, tp)
     (2, 16, 32, 8, 128, 16, (48, 17), None),       # 64 rows, 48 + 16 = 64
     (2, 32, 32, 8, 128, 16, (32, 7), None),        # 128 rows, 32 + 32 = 64
     (2, 33, 32, 8, 128, 16, (31, 64), None),       # 132 rows, 31 + 33 = 64
+    # the dense configs' head ratios: K * rep = 45, 40 and 60 rows at K=5
+    # (a tile's rows straddle query positions), 396 at K = 33, rep 12
+    (4, 5, 36, 4, 128, 16, (28, 1, 40, 0), None),  # starcoder2-7b, rep 9
+    (3, 5, 64, 8, 128, 16, (59, 60, 11), None),    # qwen3-32b, rep 8
+    (4, 5, 96, 8, 128, 16, (30, 31, 9, 0), 2),     # command-r-plus, rep 12
+    (2, 33, 96, 8, 128, 16, (20, 5), 2),           # 396 rows, past the table
 ]
 
 
@@ -358,6 +370,9 @@ GPU_DECODE_INT8 = [
     (2, 4, 4, 128, 8, (0, 30)),
     (4, 32, 8, 128, 16, (28, 1, 40, 0)),
     (2, 32, 8, 128, 16, (1000, 17)),
+    (4, 36, 4, 128, 16, (28, 1, 40, 0)),           # starcoder2-7b, rep 9
+    (4, 96, 8, 128, 16, (25, 1, 32, 29)),          # command-r-plus, rep 12
+    (2, 64, 8, 128, 16, (1000, 17)),               # qwen3-32b, rep 8
 ]
 
 
@@ -556,7 +571,9 @@ def test_int8_verify_with_one_token_is_int8_paged_decode(cuda, dt):
 GPU_PREFILL_64 = [(4, 32, 2, 1, None, True), (1, 1000, 2, 1, None, True),
                   (2, 100, 8, 2, 64, True), (2, 77, 4, 4, None, False),
                   (1, 4096, 2, 1, None, True),    # the draft's long prefill
-                  (3, 70, 8, 1, 40, True)]        # rep 8: 560 rows, window
+                  (3, 70, 8, 1, 40, True),        # rep 8: 560 rows, window
+                  (4, 32, 16, 8, None, True),     # granite-moe, rep 2
+                  (1, 300, 16, 8, None, True)]
 
 
 @pytest.mark.gpu

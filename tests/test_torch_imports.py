@@ -116,6 +116,34 @@ def test_copied_constants_equal_the_reference():
             jsm.make_profile(*args).__dict__
 
 
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen3-32b", "starcoder2-7b",
+                                  "command-r-plus-104b",
+                                  "granite-moe-1b-a400m", "dbrx-132b"])
+def test_config_copies_equal_the_reference(arch):
+    """Each ported config, its smoke size, its draft and its ``long_500k``
+    window variant equal ``repro.configs``' field by field; the copied
+    input-shape grid and default window too, and the families not ported
+    yet raise naming their ROADMAP item."""
+    import dataclasses
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+    for shape in (None, "long_500k", "decode_32k"):
+        want = jconfigs.get_config(arch, shape)
+        got = tconfigs.get_config(arch, shape)
+        for c_t, c_j in ((got, want), (got.smoke(), want.smoke()),
+                         (got.draft(), want.draft())):
+            assert dataclasses.asdict(c_t) == dataclasses.asdict(c_j)
+    assert set(tconfigs.ARCHS) | set(tconfigs._PENDING) == set(jconfigs.ARCHS)
+    assert {k: dataclasses.asdict(v)
+            for k, v in tconfigs._INPUT_SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in jconfigs.INPUT_SHAPES.items()}
+    assert (tconfigs._DEFAULT_LONG_CONTEXT_WINDOW
+            == jconfigs.DEFAULT_LONG_CONTEXT_WINDOW)
+    for pending in tconfigs._PENDING:
+        with pytest.raises(KeyError, match="Queue A item 7"):
+            tconfigs.get_config(pending)
+
+
 @pytest.mark.parametrize("name", ["TokenBucketExecutor",
                                   "SpecTokenBucketExecutor",
                                   "DisaggTokenBucketExecutor"])

@@ -179,6 +179,14 @@ GPU_PREFILL = [(b, s, h, hkv, 128, win, causal, None)
     (1, 333, 32, 8, 128, 100, True, None),     # window edge inside tiles
     (1, 150, 8, 8, 128, 40, False, None),      # bidirectional window, rep 1
     (2, 129, 16, 2, 128, 33, True, 200),       # rep 8, window, sq < skv
+    # the dense and moe configs' head ratios: a tile's 128 rows straddle
+    # query positions unevenly at rep 9 and 12
+    (4, 32, 36, 4, 128, None, True, None),     # starcoder2-7b, rep 9
+    (3, 50, 36, 4, 128, None, True, 70),       # rep 9, sq < skv
+    (4, 32, 96, 8, 128, None, True, None),     # command-r-plus-104b, rep 12
+    (1, 300, 96, 8, 128, None, True, None),
+    (2, 77, 64, 8, 128, 64, True, None),       # qwen3-32b, rep 8, window
+    (1, 129, 48, 8, 128, None, True, None),    # dbrx-132b, rep 6
 ]
 
 
@@ -219,6 +227,9 @@ GPU_PAGED = [(b, h, hkv, 128, page, lengths)
     (4, 32, 8, 128, 16, (0, 17, 40, 33)),
     (3, 32, 8, 128, 16, (4096, 1, 700)),
     (2, 32, 2, 128, 16, (100, 0)),            # 16 heads per kv head
+    (4, 36, 4, 128, 16, (28, 1, 40, 0)),      # starcoder2-7b, rep 9
+    (4, 96, 8, 128, 16, (25, 1, 32, 29)),     # command-r-plus-104b, rep 12
+    (3, 64, 8, 128, 16, (700, 0, 33)),        # qwen3-32b, rep 8
 ]
 
 
