@@ -10,10 +10,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    each, started together; six kernels: paged decode and paged verify each
    have an fp-page and an int8-page entry point); print ``-Xptxas -v``'s
    registers, shared memory and spills for the prefill, decode and verify
-   bodies, and disassemble their libraries (``cuobjdump -sass``): the bf16
-   prefill kernels (D=64 and 128) must hold HGMMA (wgmma), the bf16
-   verify kernels (fp and int8 pages) and the bf16 decode kernels (paged
-   at D=128 over fp and int8 pages, contiguous at D=64 and 128) HMMA or
+   bodies, the bf16 contiguous decode body at D=256 with zero spills, and
+   disassemble their libraries (``cuobjdump -sass``): the bf16 prefill
+   kernels (D=64, 128 and 256) must hold HGMMA (wgmma), the bf16 verify
+   kernels (fp and int8 pages) and the bf16 decode kernels (paged at
+   D=128 over fp and int8 pages, contiguous at D=64, 128 and 256) HMMA or
    HGMMA, and the CUDA-core bodies (fp32) neither;
 2. hold each kernel against its plain PyTorch version on the card at
    qwen3-8b widths (H=32, Hkv=8, D=128, page 16) and, for the prefill and
@@ -33,12 +34,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    at K = 1 each must equal its paged decode kernel at ``lengths + 1``.
    The bf16 int8 paged decode kernel is also timed at 32 rows x 4096 with
    1-4 splits forced (``int8_split_sweep``: what its split target rests
-   on).  Then every row the dense variants and the moe family run, at
-   their head ratios (``RATIOS``: rep 9 = 36/4, rep 12 = 96/8 and rep 8 =
-   64/8 for rows 1-4 with 2q and 3q; rep 6 = 48/8 and, at D=64, rep 2 =
-   16/8 for rows 1 and 4), in both dtypes, at the serve shape and one long
-   shape (S=4096 prefill, 32 x 4096 decode and verify), the verify rows at
-   rep 12 also at K = 33 (396 query rows a kv head).
+   on).  Then every row the dense variants and the moe, vlm and hybrid
+   families run, at their head ratios (``RATIOS``: rep 9 = 36/4, rep 12 =
+   96/8, rep 8 = 64/8 and rep 7 = 28/4 for rows 1-4 with 2q and 3q; rep 6
+   = 48/8, at D=64 rep 2 = 16/8 and at D=256 rep 16 = 16/1 for rows 1 and
+   4), in both dtypes, at the serve shape and one long shape (S=4096
+   prefill, 32 x 4096 decode and verify), the verify rows at rep 12 also
+   at K = 33 (396 query rows a kv head); at D=256 also the prefill under a
+   2048-token window, a decode over 32 rings of 2048, and two split
+   decode cases (2 x 2048, and 2048/700/0 with a dead row).
    Each bf16 case prints
    ``vs_library`` (ms / library_ms: below 1, faster than the library call)
    and ``bound_share`` (bound_ms / ms: the share of the least time the
@@ -72,10 +76,16 @@ Phases, each of which raises (exit code != 0) when it fails:
    (their drafts ``cfg.draft()``), granite-moe-1b-a400m (24 layers) and
    dbrx-132b (2 of 40 layers) on wave engines at capacity factor 8 (no
    token dropped, so a decode step and a prefill compute the same
-   function): every decode, verify and wave-decode logit row held to a
-   fresh prefill over the same tokens (a wave row's with its left pads)
-   within 1e-3 * max|logit|, every token the greedy choice of a fresh
-   prefill, and each arch's tokens identical across its backends;
+   function), qwen2-vl-7b (28 layers) on slot, paged and speculative
+   engines, recurrentgemma-9b (8 of 38 layers: two groups and the
+   recurrent tail) on wave engines with one prompt of 2100 tokens, past
+   its 2048-token window: every decode, verify and wave-decode logit row
+   held to a fresh prefill over the same tokens (a wave row's with its
+   left pads) within 1e-3 * max|logit|, every token the greedy choice of
+   a fresh prefill, and each arch's tokens identical across its backends;
+   and qwen2-vl-7b's ``dense.apply`` on embeddings at distinct (t, h, w)
+   ids through the kernels held to the same call on the plain prefill
+   within 1e-3 * max|logit|;
 4. the main paths, through ``repro_torch.launch.serve.run`` -- the
    decentralized protocol assigns 8 requests and two nodes serve them with
    full-width qwen3-8b (36 layers, bfloat16, random weights seeded per
@@ -99,7 +109,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    command-r-plus-104b, 16 of its 64 layers, on speculative engines, each
    with one set of weights for both nodes (one 80 GB card holds one);
    [4k] granite-moe-1b-a400m, all 24 layers, on the wave engines the moe
-   family gets, each node its own weights.  Every request must return tokens,
+   family gets, [4l] qwen2-vl-7b, all 28 layers, on paged engines, and
+   [4m] recurrentgemma-9b, all 38 layers, on wave engines (local attention
+   at D=256), each node its own weights.  Every request must return tokens,
    and every kernel of the phase's path must have launched: the launch
    counts are zeroed just before each run and read just after it, and the
    shapes, tables and lengths the run hands each kernel are recorded.
@@ -112,7 +124,7 @@ Phases, each of which raises (exit code != 0) when it fails:
    phase gave it: the most frequent prefill shape, and the decode or verify
    step of median attended length with that step's own table and lengths;
    the verify kernels also at phase 4f's warm prefill; each kernel of
-   phases 4h-4k at that phase's shapes and head ratio.
+   phases 4h-4m at that phase's shapes and head ratio.
 
 Times (``ms``, ``plain_ms``, ``library_ms``) are device time per call from
 ``torch.profiler`` over repeated calls on the same inputs (warm L2),
@@ -130,8 +142,8 @@ card could take (``bound_ms``: the larger of the bytes it must move over
 3.35 TB/s and the operations it must do over the card's peak for their
 type), with ``vs_library`` and ``bound_share``, its launches in phases
 4f and 4g (``launches_4f``, ``launches_4g``), and, for each of phases
-4h-4k whose path runs it, its launches and times there
-(``arch_phases``).  The last line is ``{"ok":
+4h-4m whose path runs it, its launches and times there
+(``arch_phases``); the D=256 entries are read in phase 4m.  The last line is ``{"ok":
 true, "device": ...}``.  Without a CUDA card, or outside a checkout of the
 repository, the script exits with an error before printing any result.
 """
@@ -177,16 +189,19 @@ ENTRIES = {  # entry: (kernel in ops.KERNELS, head width, serve phase)
     "paged_verify": ("paged_verify", 128, "4c"),
     "paged_decode_int8": ("paged_decode_int8", 128, "4d"),
     "paged_verify_int8": ("paged_verify_int8", 128, "4e"),
+    "flash_attention_d256": ("flash_attention", 256, "4m"),
+    "flash_decode_d256": ("flash_decode", 256, "4m"),
 }
 # serve phase: (engine mode, int8 KV); the driver's default mode, slot,
-# gives the moe family wave engines
+# gives the moe and hybrid families wave engines
 PHASE_MODE = {"4": ("paged", False), "4b": ("slot", False),
               "4c": ("spec", False), "4d": ("paged", True),
               "4e": ("spec", True), "4g": ("disagg", False),
               "4h": ("paged", False), "4i": ("slot", False),
-              "4j": ("spec", False), "4k": ("slot", False)}
-# the serve phases of the dense variants and the moe family: (arch, layers
-# served, one set of weights for both nodes).  qwen3-32b (65.5 GB of bf16
+              "4j": ("spec", False), "4k": ("slot", False),
+              "4l": ("paged", False), "4m": ("slot", False)}
+# the serve phases of the dense variants, the moe, vlm and hybrid
+# families: (arch, layers served, one set of weights for both nodes).  qwen3-32b (65.5 GB of bf16
 # weights) and command-r-plus-104b (56.6 GB at 16 of its 64 layers; 208 GB
 # whole) fit one 80 GB card only with the two nodes sharing their weights,
 # as the two engines of a disaggregated node already do; the others draw
@@ -194,7 +209,9 @@ PHASE_MODE = {"4": ("paged", False), "4b": ("slot", False),
 PHASE_ARCH = {"4h": ("starcoder2-7b", 32, False),
               "4i": ("qwen3-32b", 64, True),
               "4j": ("command-r-plus-104b", 16, True),
-              "4k": ("granite-moe-1b-a400m", 24, False)}
+              "4k": ("granite-moe-1b-a400m", 24, False),
+              "4l": ("qwen2-vl-7b", 28, False),
+              "4m": ("recurrentgemma-9b", 38, False)}
 # (kernel, head width) pairs each serve phase's path must launch
 PATHS = {"4": {("flash_attention", 128), ("paged_decode", 128)},
          "4b": {("flash_attention", 128), ("flash_decode", 128)},
@@ -211,7 +228,9 @@ PATHS = {"4": {("flash_attention", 128), ("paged_decode", 128)},
          "4i": {("flash_attention", 128), ("flash_decode", 128)},
          "4j": {("flash_attention", 128), ("flash_attention", 64),
                 ("flash_decode", 64), ("paged_verify", 128)},
-         "4k": {("flash_attention", 64), ("flash_decode", 64)}}
+         "4k": {("flash_attention", 64), ("flash_decode", 64)},
+         "4l": {("flash_attention", 128), ("paged_decode", 128)},
+         "4m": {("flash_attention", 256), ("flash_decode", 256)}}
 KERNEL_OPS = {  # kernel: the ops entry point the model calls for it
     "flash_attention": "attention", "paged_decode": "paged_decode",
     "flash_decode": "decode", "paged_verify": "paged_verify",
@@ -437,6 +456,7 @@ def _shown(lengths):
 SASS_RULES = (
     ("flash_attention", ("flash_wgmma_kernelILi64E",), ("HGMMA",)),
     ("flash_attention", ("flash_wgmma_kernelILi128E",), ("HGMMA",)),
+    ("flash_attention", ("flash_wgmma_kernelILi256E",), ("HGMMA",)),
     ("flash_attention", ("flash_fwd_kernel",), None),
     ("paged_verify", ("verify_mma_kernel", "Bf16Pages"), ("HMMA", "HGMMA")),
     ("paged_verify", ("verify_mma_kernel", "Int8Pages"), ("HMMA", "HGMMA")),
@@ -446,8 +466,28 @@ SASS_RULES = (
     ("paged_decode", ("attend_kernel",), None),
     ("flash_decode", ("decode_mma_kernelILi64E", "ContiguousKv"), ("HMMA", "HGMMA")),
     ("flash_decode", ("decode_mma_kernelILi128E", "ContiguousKv"), ("HMMA", "HGMMA")),
+    ("flash_decode", ("decode_mma_kernelILi256E", "ContiguousKv"), ("HMMA", "HGMMA")),
     ("flash_decode", ("attend_kernel",), None),
 )
+
+
+# kernels whose -Xptxas -v report must show zero spill stores and loads:
+# the bf16 contiguous decode body at D = 256, whose 128 accumulators a
+# thread leave room for the query fragments only when read per k-step
+NO_SPILLS = (("decode_mma_kernelILi256E", "ContiguousKv"),)
+
+
+def check_no_spills(report, rules) -> None:
+    """Each kernel of ``rules`` (fragments of its name) is in the ptxas
+    ``report`` and spills nothing."""
+    for frags in rules:
+        names = [n for n in report if all(f in n for f in frags)]
+        if not names:
+            raise AssertionError(f"no ptxas report for {frags}")
+        for n in names:
+            r = report[n]
+            if r.get("spill_stores", 0) or r.get("spill_loads", 0):
+                raise AssertionError(f"{n} spills: {r}")
 
 
 def _disassembler() -> str:
@@ -963,8 +1003,8 @@ def phase_kernels():
     return cases
 
 
-# the head ratios of the dense and moe configs: label -> ((H, Hkv, D), the
-# kernel-table rows their paths run).  Rows 1, 3 and 3q flatten Sq * rep
+# the head ratios of the dense, moe, vlm and hybrid configs: label -> ((H,
+# Hkv, D), the kernel-table rows their paths run).  Rows 1, 3 and 3q flatten Sq * rep
 # query rows of a kv head into tiles, which straddle query positions
 # unevenly at rep 9 and 12; the decode body keeps rep <= 16 rows of one
 # 16-row slice
@@ -975,7 +1015,14 @@ RATIOS = {
     "rep8 (qwen3-32b)": ((64, 8, 128), ("1", "2", "2q", "3", "3q", "4")),
     "rep6 (dbrx-132b)": ((48, 8, 128), ("1", "4")),
     "rep2 D=64 (granite-moe-1b-a400m)": ((16, 8, 64), ("1", "4")),
+    "rep7 (qwen2-vl-7b)": ((28, 4, 128), ("1", "2", "2q", "3", "3q", "4")),
+    "rep16 D=256 (recurrentgemma-9b)": ((16, 1, 256), ("1", "4")),
 }
+# recurrentgemma-9b's local attention: its 2048-token window over a 4096
+# prefill, a ring of 2048 positions at 32 rows, and bf16 split cases (one
+# block an SM at D = 256: its own split target): two full rings, and
+# ragged rows with a dead one
+WINDOW_D256 = 2048
 
 
 def phase_ratios() -> dict:
@@ -985,7 +1032,10 @@ def phase_ratios() -> dict:
     K = 5 verify step of four rows with a length-0 rider) and one long
     shape (S = 4096 prefill, 32 rows x 4096 decode and verify), timed with
     ``vs_library`` and ``bound_share``; at rep 12 the verify rows also at
-    K = 33 (396 query rows a kv head)."""
+    K = 33 (396 query rows a kv head); at D = 256 the prefill also under
+    the 2048-token window and the decode over a 32-row ring of 2048 and
+    on rows too few to fill the card (two full rings; 2048/700/0), which
+    must split in bf16 and stay within ``SPLIT_REL``."""
     out = {}
     rider, past, warm = [0, 17, 40, 33], [30, 31, 9, 0], [48, 48, 0, 16]
     long_rows = [4096] * 32
@@ -1002,6 +1052,17 @@ def phase_ratios() -> dict:
                                             heads=heads, iters=50)),
                           ("4", decode_case("long", 4096, long_rows, dt,
                                             heads=heads, iters=10))]
+            if heads[2] == 256:
+                ring = WINDOW_D256
+                cases += [
+                    ("1", prefill_case("window", 1, 4096, dt, heads=heads,
+                                       window=ring, iters=5)),
+                    ("4", decode_case("ring", ring, [ring] * 32, dt,
+                                      heads=heads, iters=10)),
+                    ("4", decode_case("few long", ring, [ring] * 2, dt,
+                                      heads=heads, iters=50)),
+                    ("4", decode_case("ragged", ring, [ring, 700, 0], dt,
+                                      heads=heads, iters=50))]
             for row, quant in (("2", False), ("2q", True)):
                 if row in rows:
                     cases += [
@@ -1028,6 +1089,10 @@ def phase_ratios() -> dict:
         out[label] = [dict(with_ratios(r), row=row) for row, r in cases]
         for r in out[label]:
             show(f"row {r['row']} {label.split()[0]}", r)
+            if (r["case"] in ("few long", "ragged")
+                    and r["dtype"] == "bfloat16" and r["splits"] < 2):
+                raise AssertionError(f"{label} {r['case']}: ran with "
+                                     f"{r['splits']} split")
     log("ratio_cases " + json.dumps(out))
     return out
 
@@ -1397,18 +1462,23 @@ def phase_consistency(n_layers: int):
     return {"worst_rel_diff": worst}
 
 
-# phase 3 at the dense variants and the moe family: (arch, layers held
-# (the rest cut for time or memory), backends, capacity factor).  The moe
-# checks lift the capacity factor to 8, as the reference's own
-# prefill/decode test does: a prefill of S tokens can drop tokens that a
-# one-token decode never drops, so only without drops are the two the same
-# function
+# phase 3 at the dense variants, the moe, vlm and hybrid families: (arch,
+# layers held (the rest cut for time or memory), backends, capacity
+# factor, prompt lengths).  The moe checks lift the capacity factor to 8,
+# as the reference's own prefill/decode test does: a prefill of S tokens
+# can drop tokens that a one-token decode never drops, so only without
+# drops are the two the same function.  recurrentgemma-9b keeps two groups
+# and the two-layer recurrent tail (8 of 38 layers), and one prompt longer
+# than its 2048-token window, so that the prefill's window masks keys and
+# the decode ring wraps
 ARCH_CONSISTENCY = (
-    ("starcoder2-7b", 32, ("slot", "paged", "spec"), None),
-    ("qwen3-32b", 8, ("slot", "paged"), None),
-    ("command-r-plus-104b", 4, ("paged", "spec"), None),
-    ("granite-moe-1b-a400m", 24, ("wave",), 8.0),
-    ("dbrx-132b", 2, ("wave",), 8.0),
+    ("starcoder2-7b", 32, ("slot", "paged", "spec"), None, (24, 11)),
+    ("qwen3-32b", 8, ("slot", "paged"), None, (24, 11)),
+    ("command-r-plus-104b", 4, ("paged", "spec"), None, (24, 11)),
+    ("granite-moe-1b-a400m", 24, ("wave",), 8.0, (24, 11)),
+    ("dbrx-132b", 2, ("wave",), 8.0, (24, 11)),
+    ("qwen2-vl-7b", 28, ("slot", "paged", "spec"), None, (24, 11)),
+    ("recurrentgemma-9b", 8, ("wave",), None, (2100, 11)),
 )
 _SCALES = ("scale", "q_norm", "k_norm")
 _BIASES = ("bias", "bq", "bk", "bv", "bo", "b_up", "b_down")
@@ -1443,15 +1513,17 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def phase_arch_consistency(arch, n_layers, backends, capacity_factor):
-    """[3, dense variants and moe] ``arch`` at full width, ``n_layers``
-    layers, float32, on the port's seeded init with its biases and norms
-    perturbed: two requests served on each of ``backends`` (slot, paged,
-    spec with ``cfg.draft()``, or a wave engine), every decode, verify or
-    wave-decode logit row held to a fresh prefill over the same tokens
-    (a wave row's with its left pads) within 1e-3 x max|logit|, each
-    emitted token the greedy choice of a fresh prefill, and the tokens
-    identical across the backends."""
+def phase_arch_consistency(arch, n_layers, backends, capacity_factor,
+                           prompt_lens):
+    """[3, dense variants, moe, vlm and hybrid] ``arch`` at full width,
+    ``n_layers`` layers, float32, on the port's seeded init with its biases
+    and norms perturbed: two requests of ``prompt_lens`` tokens served on
+    each of ``backends`` (slot, paged, spec with ``cfg.draft()``, or a wave
+    engine), every decode, verify or wave-decode logit row held to a fresh
+    prefill over the same tokens (a wave row's with its left pads) within
+    1e-3 x max|logit|, each emitted token the greedy choice of a fresh
+    prefill, and the tokens identical across the backends.  For the vlm
+    family also ``mrope_on_card``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import registry
@@ -1472,7 +1544,7 @@ def phase_arch_consistency(arch, n_layers, backends, capacity_factor):
     kit = Consistency(cfg, params)
     rng = torch.Generator().manual_seed(0)
     prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).numpy()
-               .astype("int32") for n in (24, 11)]
+               .astype("int32") for n in prompt_lens]
     results = {}
     for backend in backends:
         kw = {"paged": dict(paged=True), "slot": {}, "wave": {},
@@ -1510,8 +1582,63 @@ def phase_arch_consistency(arch, n_layers, backends, capacity_factor):
     if any(t != results[backends[0]] for t in results.values()):
         raise AssertionError(f"{arch}: greedy streams differ: {results}")
     log(f"  {arch}: greedy tokens identical across {', '.join(backends)}")
-    return dict(layers=n_layers, backends=list(backends),
-                worst_rel_diff=dict(kit.worst))
+    out = dict(layers=n_layers, backends=list(backends),
+               prompt_lens=list(prompt_lens),
+               worst_rel_diff=dict(kit.worst))
+    if cfg.mrope:
+        out["mrope_rel_diff"] = mrope_on_card(cfg, params)
+    return out
+
+
+def mrope_on_card(cfg, params) -> float:
+    """[3, vlm] ``dense.apply`` on embeddings at distinct (t, h, w) ids (a
+    text run, then a patch grid, as Qwen2-VL lays an image out) through
+    the prefill kernel, held to the same call with ``ops.attention`` on its
+    plain version within 1e-3 x max|logit|: the serve paths broadcast one
+    id to all three axes, where M-RoPE is plain RoPE, so only this call
+    can show an M-RoPE fault on the card.  Arange ids must give other
+    logits.  Returns the |diff| / max|logit|."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_ref
+    from repro_torch.models import dense
+    s, text = 96, 16
+    g = torch.Generator("cuda").manual_seed(11)
+    embeds = 0.5 * torch.randn((1, s, cfg.d_model), generator=g,
+                               device="cuda")
+    pos = torch.zeros((1, s, 3), dtype=torch.long, device="cuda")
+    pos[0, :text] = torch.arange(text, device="cuda")[:, None]
+    grid = torch.arange(s - text, device="cuda")
+    pos[0, text:, 0] = text
+    pos[0, text:, 1] = text + grid // 8
+    pos[0, text:, 2] = text + grid % 8
+    batch = {"embeds": embeds, "positions": pos}
+    before = ops.launch_counts()["flash_attention"]
+    got = dense.apply(params, cfg, batch).float()
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()["flash_attention"] - before
+    if launched != cfg.n_layers:
+        raise AssertionError(f"M-RoPE apply launched the prefill kernel "
+                             f"{launched} times for {cfg.n_layers} layers")
+    kernel = ops.attention
+    ops.attention = flash_ref
+    try:
+        want = dense.apply(params, cfg, batch).float()
+        arange = dense.apply(params, cfg, {"embeds": embeds}).float()
+    finally:
+        ops.attention = kernel
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    moved = float((arange - want).abs().max()) / scale
+    log(f"  M-RoPE on embeddings at distinct (t, h, w) ids, {cfg.n_layers} "
+        f"layers: |kernel - plain| / max|logit| = {rel:.2e} (limit 1e-3); "
+        f"arange ids move the logits by {moved:.2e} of max|logit|")
+    if rel > 1e-3:
+        raise AssertionError(f"M-RoPE through the kernels: {rel:.3e} > 1e-3")
+    if moved < 1e-2:
+        raise AssertionError(f"distinct ids changed the logits by only "
+                             f"{moved:.3e}")
+    return rel
 
 
 def _leaves(tree):
@@ -1629,7 +1756,8 @@ def phase_serve(phase, params, first=None):
     finally:
         restore()
         unrecord()
-    label = ("int8 " if quant else "") + ("wave" if cfg.is_moe else mode)
+    wave = cfg.family in ("moe", "hybrid")
+    label = ("int8 " if quant else "") + ("wave" if wave else mode)
     check_launches(label, launches, widths, phase)
     log(f"  calls by (kernel, H, Hkv, D): "
         f"{ {'/'.join(map(str, k)): n for k, n in heads.items()} }")
@@ -1711,7 +1839,7 @@ def phase_serve(phase, params, first=None):
 
 
 def phase_serve_arch(phase):
-    """[4h-4k] Seed the phase's weights (``PHASE_ARCH``: one set per node,
+    """[4h-4m] Seed the phase's weights (``PHASE_ARCH``: one set per node,
     or one shared; biases and norms perturbed), print its config and cut,
     serve it (``phase_serve``) and free the weights."""
     import torch
@@ -1736,7 +1864,7 @@ def phase_serve_arch(phase):
 
 
 def phase_arch_shapes(seen) -> dict:
-    """[5, phases 4h-4k] Each kernel of a new serve phase's path against
+    """[5, phases 4h-4m] Each kernel of a new serve phase's path against
     its plain version at the shapes and head ratio that phase gave it
     (bfloat16): the most frequent prefill shape and the decode or verify
     step of median attended length."""
@@ -2079,27 +2207,27 @@ def main() -> int:
 
     log(f"[1] built {list(_build.SOURCES)} in {build_s:.1f}s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
-    for name, r in ptxas_report(logs, ("flash_wgmma_kernel", "verify_mma_kernel",
-                                       "decode_mma_kernel",
-                                       "decode_combine_kernel",
-                                       "flash_fwd_kernel",
-                                       "attend_kernel")).items():
+    ptxas = ptxas_report(logs, ("flash_wgmma_kernel", "verify_mma_kernel",
+                                "decode_mma_kernel", "decode_combine_kernel",
+                                "flash_fwd_kernel", "attend_kernel"))
+    for name, r in ptxas.items():
         log(f"  ptxas {name}: {r}")
+    check_no_spills(ptxas, NO_SPILLS)
     for name, counts in sass_check(_build.BUILD_DIR).items():
         log(f"  sass {name}: {counts}")
     log("[2] kernels vs their plain versions" + at())
     phase_kernels()
-    log("[2, new head ratios] rows 1-4 at rep 9, 12, 8, 6 and D=64 rep 2"
-        + at())
+    log("[2, new head ratios] rows 1-4 at rep 9, 12, 8, 6, 7, D=64 rep 2 "
+        "and D=256 rep 16" + at())
     phase_ratios()
     log("[3] model consistency: paged, slot and verify logits vs fresh "
         "prefills" + at())
     phase_consistency(n_layers=36)
     _free()
-    for arch, n_layers, backends, cf in ARCH_CONSISTENCY:
+    for arch, n_layers, backends, cf, lens in ARCH_CONSISTENCY:
         log(f"[3, {arch}] {', '.join(backends)} logits vs fresh prefills"
             + at())
-        phase_arch_consistency(arch, n_layers, backends, cf)
+        phase_arch_consistency(arch, n_layers, backends, cf, lens)
         _free()
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -2135,7 +2263,9 @@ def main() -> int:
             ("4i", "qwen3-32b on slot engines, one set of weights"),
             ("4j", "command-r-plus-104b on speculative engines (--spec), "
                    "one set of weights"),
-            ("4k", "granite-moe-1b-a400m on wave engines")):
+            ("4k", "granite-moe-1b-a400m on wave engines"),
+            ("4l", "qwen2-vl-7b on paged engines (--paged)"),
+            ("4m", "recurrentgemma-9b on wave engines")):
         log(f"[{phase}] serve {title}" + at())
         launches[phase], seen[phase] = phase_serve_arch(phase)
     log("[5] kernels vs their plain versions at the serve phases' shapes"
@@ -2144,7 +2274,10 @@ def main() -> int:
     arch_cases = phase_arch_shapes(seen)
     kernels = []
     for entry, (kernel, d, phase) in ENTRIES.items():
-        meta, r = ops.KERNELS[kernel], main_cases[entry]
+        meta = ops.KERNELS[kernel]
+        # an entry of a new config's serve phase: read at that phase's shapes
+        r = (main_cases[entry] if entry in main_cases
+             else arch_cases[phase][f"{kernel}@{d}"])
         kernels.append(dict(
             name=entry, route="cuda", source=meta["source"],
             replaces=meta["replaces"], head_dim=d, phase=phase,

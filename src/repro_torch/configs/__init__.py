@@ -1,6 +1,7 @@
 """Architecture registry of the port.  The dense family (qwen3-8b,
-qwen3-32b, starcoder2-7b, command-r-plus-104b) and the moe family
-(granite-moe-1b-a400m, dbrx-132b) are ported; the other architectures of
+qwen3-32b, starcoder2-7b, command-r-plus-104b), the moe family
+(granite-moe-1b-a400m, dbrx-132b), the vlm family (qwen2-vl-7b) and the
+hybrid family (recurrentgemma-9b) are ported; the other architectures of
 ``repro.configs`` raise ``KeyError`` naming the ROADMAP item that brings
 them."""
 
@@ -19,12 +20,12 @@ ARCHS: Dict[str, str] = {
     "dbrx-132b": "dbrx_132b",
     "qwen3-32b": "qwen3_32b",
     "command-r-plus-104b": "command_r_plus_104b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 # architectures of the reference still to port -> the ROADMAP item
 _PENDING: Dict[str, str] = {
-    "qwen2-vl-7b": "Queue A item 7 (vlm, M-RoPE)",
-    "recurrentgemma-9b": "Queue A item 7 (hybrid RG-LRU)",
     "xlstm-1.3b": "Queue A item 7 (ssm, xLSTM)",
     "whisper-base": "Queue A item 7 (audio encoder-decoder)",
 }

@@ -148,8 +148,12 @@ attend_kernel(const T* __restrict__ q, Src src, const int* __restrict__ lengths,
   constexpr int kQVecPerRow = D / kQVec;
   constexpr int kKvVec = Src::kVec;        // K/V elements per 16-byte load
   constexpr int kKvVecPerRow = D / kKvVec;
-  constexpr int kRowStride = kThreads / D; // rows apart per thread
+  // output columns: a thread owns column tid % D of every kRowStride-th
+  // row (D <= kThreads), or columns tid, tid + kThreads, ... of every row
+  constexpr int kColGroups = D > kThreads ? D / kThreads : 1;
+  constexpr int kRowStride = kThreads * kColGroups / D;  // rows apart per thread
   constexpr int kAcc = (kMaxRows + kRowStride - 1) / kRowStride;
+  static_assert(D % kThreads == 0 || kThreads % D == 0, "columns a thread");
 
   const int g = blockIdx.x;
   const int b = blockIdx.y;
@@ -176,11 +180,13 @@ attend_kernel(const T* __restrict__ q, Src src, const int* __restrict__ lengths,
     sM[r] = kNegInf;
     sL[r] = 0.f;
   }
-  const int dcol = tid % D;
-  const int rsub = tid / D;
-  float acc[kAcc];
+  const int dcol = tid % (D / kColGroups);
+  const int rsub = tid / (D / kColGroups);
+  float acc[kAcc][kColGroups];
 #pragma unroll
-  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+  for (int j = 0; j < kAcc; ++j)
+#pragma unroll
+    for (int cg = 0; cg < kColGroups; ++cg) acc[j][cg] = 0.f;
 
   for (int c0 = (w_lo / kChunk) * kChunk; c0 < w_hi; c0 += kChunk) {
     __syncthreads();                       // previous step fully consumed
@@ -249,10 +255,14 @@ attend_kernel(const T* __restrict__ q, Src src, const int* __restrict__ lengths,
     for (int j = 0; j < kAcc; ++j) {
       const int r = rsub + j * kRowStride;
       if (r < rows) {
-        float x = acc[j] * sA[r];
+#pragma unroll
+        for (int cg = 0; cg < kColGroups; ++cg) {
+          const int col = dcol + cg * kThreads;
+          float x = acc[j][cg] * sA[r];
 #pragma unroll 8
-        for (int kk = 0; kk < kChunk; ++kk) x = fmaf(sS[r * kChunk + kk], sV[kk * D + dcol], x);
-        acc[j] = x;
+          for (int kk = 0; kk < kChunk; ++kk) x = fmaf(sS[r * kChunk + kk], sV[kk * D + col], x);
+          acc[j][cg] = x;
+        }
       }
     }
   }
@@ -262,8 +272,10 @@ attend_kernel(const T* __restrict__ q, Src src, const int* __restrict__ lengths,
     const int r = rsub + j * kRowStride;
     if (r < rows) {
       const int rg = row0 + r;
-      out[(((size_t)b * K + rg / rep) * H + g * rep + rg % rep) * D + dcol] =
-          Elem<T>::store(acc[j] / fmaxf(sL[r], 1e-30f));
+      T* o = out + (((size_t)b * K + rg / rep) * H + g * rep + rg % rep) * D;
+#pragma unroll
+      for (int cg = 0; cg < kColGroups; ++cg)
+        o[dcol + cg * kThreads] = Elem<T>::store(acc[j][cg] / fmaxf(sL[r], 1e-30f));
     }
   }
 }

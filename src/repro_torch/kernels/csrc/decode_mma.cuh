@@ -18,7 +18,13 @@
 //
 // * One block of 4 warps per (kv head, batch row, split).  The rep query
 //   heads of the kv head form one 16-row A slice (rows past rep are
-//   zeros), loaded once and held in registers for the whole walk.
+//   zeros), loaded once and held in registers for the whole walk -- up to
+//   D = 128.  At D = 256 (recurrentgemma-9b) the slice would take 64
+//   registers a thread beside the 128 of the accumulators, so there each
+//   warp reads its A fragment of a k16 step from the shared Q slice with
+//   ldmatrix right before the step's MMAs, as it reads K; the ring (three
+//   stages of 64 KB) and Q take 200 KB, so one block fits an SM
+//   (decode_split.py's TARGET_BLOCKS_D256).
 // * Warp w takes positions [16 w, 16 w + 16) of every 64-position chunk
 //   and keeps its own (m, l, acc) in registers; the 4 warps merge once at
 //   the end through shared memory.  Every warp does MMAs on every chunk.
@@ -300,6 +306,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, Src src,
   unsigned char* ring = smem_raw + sizeof(__nv_bfloat16) * kDecodeRows * D;
   constexpr int kKSteps = D / 16;                        // k16 steps over D
   constexpr int kNd = D / 8;                             // n8 blocks of the output
+  constexpr bool kQInRegs = D <= 128;                    // else read per k-step
 
   const int rep = H / Hkv;
   const int g = blockIdx.x;
@@ -344,15 +351,17 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, Src src,
   float acc[kNd][4];
 #pragma unroll
   for (int j = 0; j < kNd; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  uint32_t qf[kKSteps][4];
+  uint32_t qf[kQInRegs ? kKSteps : 1][4];
 
   for (int ci = 0; ci < n_chunks; ++ci) {
     cp_async_wait<kDecodeStages - 2>();
     __syncthreads();                                     // chunk ci staged; ci - 1 consumed
-    if (ci == 0) {
+    if constexpr (kQInRegs) {
+      if (ci == 0) {
 #pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks)
-        ldsm_x4(qf[ks], smem_u32(sQ) + swz<D>(lane & 15, 2 * ks + (lane >> 4)) * 16);
+        for (int ks = 0; ks < kKSteps; ++ks)
+          ldsm_x4(qf[ks], smem_u32(sQ) + swz<D>(lane & 15, 2 * ks + (lane >> 4)) * 16);
+      }
     }
     {  // refill the stage chunk ci - 1 used
       const int nx = ci + kDecodeStages - 1;
@@ -374,8 +383,11 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, Src src,
         for (int ks = 0; ks < kKSteps; ++ks) {
           uint32_t bf[4];
           ldsm_x4(bf, kb + swz<D>(r, 2 * ks + ((lane >> 3) & 1)) * 16);
-          mma_bf16(s[0], qf[ks], bf[0], bf[1]);
-          mma_bf16(s[1], qf[ks], bf[2], bf[3]);
+          if constexpr (!kQInRegs)
+            ldsm_x4(qf[0], smem_u32(sQ) + swz<D>(lane & 15, 2 * ks + (lane >> 4)) * 16);
+          const uint32_t(&af)[4] = qf[kQInRegs ? ks : 0];
+          mma_bf16(s[0], af, bf[0], bf[1]);
+          mma_bf16(s[1], af, bf[2], bf[3]);
         }
       }
       // int8: this thread's positions' scales, the K scale with the

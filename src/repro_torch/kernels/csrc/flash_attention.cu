@@ -43,6 +43,16 @@
 //   each within the 168 registers a thread of 384 has, without setmaxnreg;
 //   132 KB of shared memory at D = 128 (Q 32 KB, three stages of 32 KB, a
 //   1 KB alignment pad).
+// * At D = 256 (recurrentgemma-9b) a 64-row warpgroup's O alone is 64 x
+//   256 fp32, 128 registers a thread, which with the 32 scores and 16 P
+//   fragments does not fit 168; and two warpgroups' Q with three stages
+//   would need 263,168 bytes of shared memory, over the 232,448 a block
+//   may use.  So the CTA has one consumer warpgroup (64 query rows) beside
+//   the producer: 256 threads, up to 255 registers each, and 230,400
+//   bytes (Q 32 KB, three stages of 64 KB, the pad).  O += P V is two
+//   m64n128k16 products a k16 step, on V's column panels 0-1 and 2-3.  The
+//   K/V tiles are read once per 64 rows instead of 128, so the arithmetic
+//   per staged byte halves against D = 128's.
 // * Masking matches the plain version exactly: masked scores take the
 //   finite -1e30, keys past Skv -inf, and l is floored at 1e-30.  A row
 //   that sees no key at all (only possible when Sq > Skv with a window)
@@ -56,8 +66,9 @@
 // full-width fp32 consistency checks rest on.  One block of 256 threads
 // per 64 rows, K/V staged as padded fp32, 4x4 scores per lane.
 //
-// Both are built for head widths 64 (the speculative draft) and 128
-// (qwen3-8b).
+// Both are built for head widths 64 (the speculative draft), 128 (qwen3-8b
+// and the other dense and vlm configs) and 256 (recurrentgemma-9b's local
+// attention).
 
 #include <stdint.h>
 
@@ -242,18 +253,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // ---- bf16: the wgmma body
 namespace wg {
 
-constexpr int kConsumers = 2;                 // consumer warpgroups, 64 rows each
-constexpr int kRows = 64 * kConsumers;        // query rows per CTA
 constexpr int kKeys = 64;                     // keys per staged tile
 constexpr int kStages = 3;                    // K/V ring depth
 constexpr int kProducerThreads = 128;         // one producer warpgroup
-constexpr int kThreads = 128 * kConsumers + kProducerThreads;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// a CTA at head width D: consumer warpgroups of 64 query rows each, two,
+// or one at D = 256
+template <int D>
+struct Cta {
+  static constexpr int kConsumers = D == 256 ? 1 : 2;
+  static constexpr int kRows = 64 * kConsumers;  // query rows per CTA
+  static constexpr int kThreads = 128 * kConsumers + kProducerThreads;
+};
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return 1024 + sizeof(__nv_bfloat16) * ((size_t)kRows * D + kStages * 2 * kKeys * D);
+  return 1024 + sizeof(__nv_bfloat16) * ((size_t)Cta<D>::kRows * D + kStages * 2 * kKeys * D);
 }
+static_assert(smem_bytes<256>() + 2 * kStages * sizeof(uint64_t) <= 232448,
+              "D = 256 fits one block's shared memory");
+
+// a compile-time count of threads that stage a tile together
+template <int N>
+struct Step {
+  static constexpr int value = N;
+};
 
 // Byte offset of 16-byte piece c (of D / 8) of row r in a tile of R rows
 // held as D / 64 panels of R rows x 128 bytes, each row's pieces permuted
@@ -344,6 +369,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O (64 x D) += P (64 x 16, registers) * the V rows of one k16 step, whose
+// column panels (64 columns of kKeys rows x 128 bytes each) start at sv: one
+// product of width D, or at D = 256 one of width 128 on each half
+template <int D>
+__device__ __forceinline__ void pv_wgmma(float (&o)[D / 2], const uint32_t (&a)[4],
+                                         uint32_t sv) {
+  if constexpr (D <= 128) {
+    wgmma_rs(o, a, desc(sv, kKeys * 128));
+  } else {
+#pragma unroll
+    for (int n = 0; n < D / 128; ++n)
+      wgmma_rs(*reinterpret_cast<float(*)[64]>(o + 64 * n), a,
+               desc(sv + n * 2 * kKeys * 128, kKeys * 128));
+  }
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
                : "memory");
@@ -368,11 +409,14 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cta<D>::kThreads, 1)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq,
                    int Skv, int H, int Hkv, int causal, int window, float scale_log2) {
-  static_assert(D == 64 || D == 128, "head width");
+  static_assert(D == 64 || D == 128 || D == 256, "head width");
+  constexpr int kConsumers = Cta<D>::kConsumers;
+  constexpr int kRows = Cta<D>::kRows;
+  constexpr int kThreads = Cta<D>::kThreads;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   constexpr uint32_t kQBytes = kRows * D * 2;
@@ -404,26 +448,29 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int n_tiles = max(0, (k_hi - t0 + kKeys - 1) / kKeys);
 
   // K and V tile j into ring stage j % kStages: this thread's 16-byte
-  // pieces first, first + step, ... (step a multiple of 8 rows, so that a
-  // thread keeps one column and one swizzle phase)
-  auto load_tile = [&](int j, int first, int step) {
+  // pieces first, first + step, ... (step, a Step<N>, a multiple of a
+  // row's pieces, so that a thread keeps one column; where it is also a
+  // multiple of 8 rows the thread keeps one swizzle phase, computed once;
+  // the producer's 4 rows a pass at D = 256 swizzle each row)
+  auto load_tile = [&](int j, int first, auto step) {
+    constexpr int dr = decltype(step)::value / kPieces;
     const int kt = t0 + j * kKeys;
     const uint32_t sK = sKV + (j % kStages) * 2 * kTileBytes;
     const uint32_t sV = sK + kTileBytes;
     const int c = first % kPieces;
     int r = first / kPieces;
-    const int dr = step / kPieces;
     const uint32_t so = (c >> 3) * (kKeys * 128) + (((c & 7) ^ (r & 7)) << 4);
     size_t off = ((size_t)(b * Skv + kt + r) * Hkv + g) * D + c * 8;
     const size_t doff = (size_t)dr * Hkv * D;
     for (; r < kKeys; r += dr, off += doff) {
       const bool ok = kt + r < Skv;
-      cp_async16(sK + so + r * 128, ok ? k + off : k, ok);
-      cp_async16(sV + so + r * 128, ok ? v + off : v, ok);
+      const uint32_t at = dr % 8 == 0 ? so + r * 128 : panel_off<kKeys>(r, c);
+      cp_async16(sK + at, ok ? k + off : k, ok);
+      cp_async16(sV + at, ok ? v + off : v, ok);
     }
   };
-  static_assert((kThreads / kPieces) % 8 == 0 && (kProducerThreads / kPieces) % 8 == 0,
-                "load_tile keeps a thread on one swizzle phase");
+  static_assert(kThreads % kPieces == 0 && kProducerThreads % kPieces == 0,
+                "load_tile keeps a thread on one column");
 
   // prologue, all threads: Q and the first kStages tiles, so that a short
   // prefill (one or two tiles) waits for one round of loads, not for one
@@ -437,7 +484,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
         ok ? ((size_t)(b * Sq + gr / rep) * H + g * rep + gr % rep) * D + c * 8 : 0;
     cp_async16(sQ + panel_off<kRows>(r, c), q + off, ok);
   }
-  for (int j = 0; j < min(n_tiles, kStages); ++j) load_tile(j, tid, kThreads);
+  for (int j = 0; j < min(n_tiles, kStages); ++j) load_tile(j, tid, Step<kThreads>{});
   cp_async_commit();
   if (tid == 0) {
 #pragma unroll
@@ -458,7 +505,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     const int pt = tid - 128 * kConsumers;
     for (int j = kStages; j < n_tiles; ++j) {
       mbar_wait(&empty[j % kStages], (j / kStages - 1) & 1);
-      load_tile(j, pt, kProducerThreads);
+      load_tile(j, pt, Step<kProducerThreads>{});
       cp_async_commit();
       if (j > kStages) {                            // tile j - 1 landed
         cp_async_wait<1>();
@@ -562,7 +609,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       for (int x = 0; x < 4; ++x) pa[t][x] = pack_bf16(sc[8 * t + 2 * x], sc[8 * t + 2 * x + 1]);
     wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < 4; ++t) wgmma_rs(o, pa[t], desc(sV + t * 16 * 128, kKeys * 128));
+    for (int t = 0; t < 4; ++t) pv_wgmma<D>(o, pa[t], sV + t * 16 * 128);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -612,8 +659,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
       allow_smem_once(wg::flash_wgmma_kernel<D>, smem, device, smem_allowed);
   if (e != cudaSuccess) return (int)e;
   const int rep = H / Hkv;
-  const dim3 grid((Sq * rep + wg::kRows - 1) / wg::kRows, Hkv, B);
-  wg::flash_wgmma_kernel<D><<<grid, wg::kThreads, smem, stream>>>(
+  constexpr int kCtaRows = wg::Cta<D>::kRows;
+  const dim3 grid((Sq * rep + kCtaRows - 1) / kCtaRows, Hkv, B);
+  wg::flash_wgmma_kernel<D><<<grid, wg::Cta<D>::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Hkv,
       causal, window, scale * wg::kLog2e);
@@ -623,23 +671,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
 }  // namespace
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16.  D must be 64 or 128.  window <= 0
+// dtype: 0 = float32, 1 = bfloat16.  D must be 64, 128 or 256.  window <= 0
 // means no window.  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    int dtype, int B, int Sq, int Skv, int H, int Hkv, int D,
                                    int causal, int window, float scale, int device,
                                    void* stream) {
   using namespace repro_torch;
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
+                         int, int, float, int, cudaStream_t);
+  const int w = D == 64 ? 0 : D == 128 ? 1 : D == 256 ? 2 : -1;
+  if (w < 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool d64 = D == 64;
-  if (dtype == 0)
-    return (d64 ? launch_f32<64> : launch_f32<128>)(q, k, v, out, B, Sq, Skv, H, Hkv, causal,
-                                                    window, scale, device, st);
-  if (dtype == 1)
-    return (d64 ? launch_bf16<64> : launch_bf16<128>)(q, k, v, out, B, Sq, Skv, H, Hkv, causal,
-                                                      window, scale, device, st);
-  return (int)cudaErrorInvalidValue;
+  static const Launch launch[2][3] = {{launch_f32<64>, launch_f32<128>, launch_f32<256>},
+                                      {launch_bf16<64>, launch_bf16<128>, launch_bf16<256>}};
+  return launch[dtype][w](q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, scale, device,
+                          static_cast<cudaStream_t>(stream));
 }

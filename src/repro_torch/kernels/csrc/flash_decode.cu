@@ -27,8 +27,9 @@
 // chunk, so the cache is read once, and positions past the row's length
 // or below its window are never read.  A row of length 0, or whose window
 // lies past the cache, averages V over all S positions, as the plain
-// version does.  Built for head widths 64 (the speculative draft) and 128
-// (qwen3-8b) in fp32 and bf16, up to 16 query heads per kv head.
+// version does.  Built for head widths 64 (the speculative draft), 128
+// (qwen3-8b, the other dense and vlm configs) and 256 (recurrentgemma-9b's
+// ring cache) in fp32 and bf16, up to 16 query heads per kv head.
 
 #include "decode_mma.cuh"
 
@@ -50,8 +51,8 @@ int launch_fp32(const void* q, const void* k, const void* v, const int* lengths,
 }  // namespace
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16.  D must be 64 or 128.  q (B, 1, H, D),
-// caches (B, S, Hkv, D), lengths (B,) int32; window <= 0 means no window.
+// dtype: 0 = float32, 1 = bfloat16.  D must be 64, 128 or 256.  q (B, 1, H,
+// D), caches (B, S, Hkv, D), lengths (B,) int32; window <= 0 means no window.
 // splits: blocks the S positions of a row are cut across (bf16 only; fp32
 // takes 1), split z walking positions [z * span, (z + 1) * span), so
 // splits * span must reach S; with more than one, workspace holds B * H *
@@ -62,25 +63,27 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 int B, int S, int H, int Hkv, int D, int window, int splits,
                                 int span, float scale, int device, void* stream) {
   using namespace repro_torch;
-  if ((D != 64 && D != 128) || B < 1 || Hkv < 1 || H % Hkv != 0 || H / Hkv > kMaxRep ||
-      S < 1 || splits < 1 || splits > 65535 || span < 1 || (long long)splits * span < S ||
-      (splits > 1 && (dtype != 1 || workspace == nullptr)))
+  if ((D != 64 && D != 128 && D != 256) || B < 1 || Hkv < 1 || H % Hkv != 0 ||
+      H / Hkv > kMaxRep || S < 1 || splits < 1 || splits > 65535 || span < 1 ||
+      (long long)splits * span < S || (splits > 1 && (dtype != 1 || workspace == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lengths);
-  if (dtype == 0)
-    return D == 64 ? launch_fp32<64>(q, k, v, ln, out, B, S, H, Hkv, window, scale, device, st)
-                   : launch_fp32<128>(q, k, v, ln, out, B, S, H, Hkv, window, scale, device, st);
+  if (dtype == 0) {
+    const auto fp32 = D == 64 ? launch_fp32<64> : D == 128 ? launch_fp32<128> : launch_fp32<256>;
+    return fp32(q, k, v, ln, out, B, S, H, Hkv, window, scale, device, st);
+  }
   if (dtype == 1) {
     const ContiguousKv kv{S};
     const mma::DecodeBf16 src{static_cast<const __nv_bfloat16*>(k),
                               static_cast<const __nv_bfloat16*>(v)};
-    return D == 64 ? mma::launch_decode_mma<64>(q, src, ln, out, workspace, B, H, Hkv, window,
-                                                splits, span, scale, kv, device, st)
-                   : mma::launch_decode_mma<128>(q, src, ln, out, workspace, B, H, Hkv, window,
-                                                 splits, span, scale, kv, device, st);
+    const auto bf16 = D == 64    ? mma::launch_decode_mma<64, ContiguousKv, mma::DecodeBf16>
+                      : D == 128 ? mma::launch_decode_mma<128, ContiguousKv, mma::DecodeBf16>
+                                 : mma::launch_decode_mma<256, ContiguousKv, mma::DecodeBf16>;
+    return bf16(q, src, ln, out, workspace, B, H, Hkv, window, splits, span, scale, kv, device,
+                st);
   }
   return (int)cudaErrorInvalidValue;
 }

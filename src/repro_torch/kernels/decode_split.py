@@ -7,7 +7,8 @@ the wrappers pass the kernel its length, ``split_span``), and a second
 kernel merges the splits' partial softmax sums.  The host chooses
 ``splits`` from the batch, the kv heads and ``n`` alone: the lengths lie on
 the card, and reading them would synchronise.  The decode wrappers call
-``decode_splits`` (the int8-page one with its own target);
+``decode_splits`` (the int8-page one, and the contiguous one at head
+width 256, with their own targets);
 ``kernels.ref.decode_split_ref``, ``paged_decode_split_ref`` and
 ``paged_decode_quant_split_ref`` repeat the split-then-merge in plain
 PyTorch.
@@ -19,6 +20,9 @@ from typing import List, Tuple
 
 CHUNK = 64            # positions a block stages per step (kChunk)
 TARGET_BLOCKS = 264   # two blocks of 4 warps on each of the H100's 132 SMs
+# at head width 256 a block's ring and query slice take 200 KB of shared
+# memory, so one block fits an SM: one wave of blocks
+TARGET_BLOCKS_D256 = 132
 # the int8-page body (70 KB of shared memory: three blocks share an SM) is
 # bound by the latency of its walk on long rows and gains from more, shorter
 # blocks: about two waves of three blocks on each SM (3 splits of 32 rows x
@@ -46,6 +50,11 @@ def decode_splits(b: int, hkv: int, n: int,
         return 1
     per = -(-chunks // splits)
     return -(-chunks // per)
+
+
+def target_blocks(d: int) -> int:
+    """The bf16 contiguous decode kernel's target at head width ``d``."""
+    return TARGET_BLOCKS_D256 if d == 256 else TARGET_BLOCKS
 
 
 def split_span(n: int, splits: int) -> int:

@@ -17,7 +17,8 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # the widths it is built for: the draft's, qwen3-8b's
+# the widths it is built for: the draft's, qwen3-8b's, recurrentgemma-9b's
+_HEAD_DIMS = (64, 128, 256)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 

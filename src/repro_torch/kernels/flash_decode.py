@@ -20,12 +20,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_split import decode_splits, split_span
+from repro_torch.kernels.decode_split import (decode_splits, split_span,
+                                              target_blocks)
 from repro_torch.kernels.flash_attention import (DTYPES, check_cuda_inputs,
                                                  check_head_dim)
 
 _MAX_REP = 16           # query heads per kv head (kMaxRep in the source)
-_HEAD_DIMS = (64, 128)  # the widths it is built for: the draft's, qwen3-8b's
+# the widths it is built for: the draft's, qwen3-8b's, recurrentgemma-9b's
+_HEAD_DIMS = (64, 128, 256)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -54,7 +56,8 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     check_cuda_inputs((q, k_cache, v_cache, lengths), q.dtype)
-    splits = decode_splits(b, hkv, s) if q.dtype == torch.bfloat16 else 1
+    splits = (decode_splits(b, hkv, s, target_blocks(d))
+              if q.dtype == torch.bfloat16 else 1)
     out = torch.empty_like(q)
     work = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)

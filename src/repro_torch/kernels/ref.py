@@ -19,7 +19,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.decode_split import (TARGET_BLOCKS_INT8,
-                                              decode_splits, split_ranges)
+                                              decode_splits, split_ranges,
+                                              target_blocks)
 from repro_torch.models.attention import (_NEG_INF, _expand_kv,
                                           decode_attention, kv_dequantize,
                                           reference_attention,
@@ -69,9 +70,10 @@ def decode_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
                      window: Optional[int] = None,
                      splits: Optional[int] = None) -> torch.Tensor:
     """``decode_ref`` as the bf16 decode kernel splits it: each split of
-    ``split_ranges(S, splits)`` (default ``decode_splits(B, Hkv, S)``)
-    takes its partial max ``m``, sum ``l`` and unnormalised ``acc`` over its
-    positions of the row's walk, in float32, and the partials merge as
+    ``split_ranges(S, splits)`` (default ``decode_splits(B, Hkv, S,
+    target_blocks(D))``) takes its partial max ``m``, sum ``l`` and
+    unnormalised ``acc`` over its positions of the row's walk, in float32,
+    and the partials merge as
     ``sum exp(m - M) acc / max(sum exp(m - M) l, 1e-30)``, ``M`` their
     max.  The walk is ``[max(0, len - window), min(len, S))``; a row whose
     walk is empty (a dead row) walks all S positions at -1e30 and averages
@@ -81,7 +83,7 @@ def decode_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
     b, _, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     if splits is None:
-        splits = decode_splits(b, hkv, s)
+        splits = decode_splits(b, hkv, s, target_blocks(d))
     kf = _expand_kv(k_cache, h).float()
     vf = _expand_kv(v_cache, h).float()
     scores = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), kf) / (d ** 0.5)

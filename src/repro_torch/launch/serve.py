@@ -20,10 +20,11 @@ handoff.  ``--trace PATH`` records the protocol sim's and the replay's
 lifecycle spans into one stream, writes them to PATH as a Perfetto
 (Chrome ``trace_event``) JSON and prints the slowest requests' latency
 breakdown.  ``--arch`` takes every ported config: the dense family
-(qwen3-8b, the default, qwen3-32b, starcoder2-7b, command-r-plus-104b) on
-every backend above, and the moe family (granite-moe-1b-a400m,
-dbrx-132b), whose engines serve left-padded waves and refuse the paged
-backends, as the reference's do.  On the card (the default)
+(qwen3-8b, the default, qwen3-32b, starcoder2-7b, command-r-plus-104b)
+and the vlm family (qwen2-vl-7b) on every backend above, and the moe
+family (granite-moe-1b-a400m, dbrx-132b) and the hybrid family
+(recurrentgemma-9b), whose engines serve left-padded waves and refuse the
+paged backends, as the reference's do.  On the card (the default)
 the nodes serve the full-width model in bfloat16, each with its own seeded
 random weights; on the CPU (``--device cpu``) they serve the reduced
 float32 config the reference driver runs, with the kernels' plain
@@ -34,6 +35,7 @@ versions::
     PYTHONPATH=src python -m repro_torch.launch.serve --spec --kv-quant
     PYTHONPATH=src python -m repro_torch.launch.serve --disagg --trace t.json
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
 """
 
 from __future__ import annotations

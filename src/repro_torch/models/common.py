@@ -1,8 +1,9 @@
 """Shared layers on tensors: norms, RoPE, initializers.
 
 Port of ``repro.models.common`` (norms, ``rope_freqs``/``apply_rope``,
-``dense_init``/``embed_init``).  Arithmetic runs in float32 and casts back
-to the input dtype, as in the reference.  The reference's sharding
+the vlm family's ``apply_mrope``, ``dense_init``/``embed_init``).
+Arithmetic runs in float32 and casts back to the input dtype, as in the
+reference.  The reference's sharding
 annotations (``cm.shard``) have no counterpart on one card.
 """
 
@@ -63,6 +64,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (B, S, H, D); positions: (B, S) integer."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)          # (D/2,)
     ang = positions[..., None].float() * freqs                # (B, S, D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL M-RoPE.  x: (B, S, H, D); positions: (B, S, 3) = (t, h, w)
+    ids.  The D/2 rotary frequencies are split into ``sections`` (t, h,
+    w); each section rotates by its own position id (arXiv:2409.12191
+    §3.1)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
+    assert sum(sections) == d // 2, (
+        f"mrope_sections {sections} must sum to head_dim/2 = {d // 2}")
+    sec = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))              # (D/2,)
+    pos = positions.float()[..., sec]                         # (B, S, D/2)
+    ang = pos * freqs
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

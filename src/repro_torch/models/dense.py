@@ -3,7 +3,9 @@
 Port of the serving paths of ``repro.models.dense`` for every dense
 layout of ``repro.configs``: qwen3 (RMSNorm, SwiGLU, qk-norm),
 starcoder2 (LayerNorm, GeLU, biases), command-r-plus (LayerNorm, parallel
-attention/MLP block, tied embeddings) and their sliding-window variants:
+attention/MLP block, tied embeddings), the vlm family's qwen2-vl (M-RoPE
+over (t, h, w) position ids, and embedding inputs: ``embed_inputs``) and
+their sliding-window variants:
 ``init``, the full-sequence ``apply``, right-padded ``prefill`` with
 ``last_positions``, the slot cache (``init_cache``, ``decode_step`` with
 (B,) lengths, or one scalar length for the lock-step wave), the KV page
@@ -13,8 +15,9 @@ pools (``init_paged_pools``, ``prefill_to_pages``,
 K/V plus bf16 per-(token, head) scales, quantized on write).  Public
 functions keep the reference's layouts: weights ``(d_in, d_out)`` stacked
 on a leading layer axis, slot caches ``(L, B, C, Hkv, dh)``, pools
-``(L, P, page, Hkv, dh)``, scales ``(..., 1)``.  M-RoPE and embedding
-inputs (the vlm family) are ROADMAP Queue A item 7.
+``(L, P, page, Hkv, dh)``, scales ``(..., 1)``.  Under M-RoPE a decode or
+verify step broadcasts its position to all three axes, as the reference
+does, even after a prefill on embeddings with distinct (t, h, w) ids.
 
 Attention goes through ``kernels.ops``: the prefill through the prefill
 kernel (where the reference calls its jnp ``flash_attention``), a slot
@@ -63,11 +66,7 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     the reference's switches make: RMSNorm or LayerNorm, SwiGLU or GeLU
     (with ``b_up``/``b_down`` under ``use_bias``), the q/k/v/o biases,
     qk-norm, the parallel block (no ``ln2``) and tied embeddings (no
-    ``lm_head``).  M-RoPE (the vlm family) is ROADMAP Queue A item 7."""
-    if cfg.mrope or cfg.embeds_input:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and embedding inputs (the vlm family) are "
-            f"ROADMAP Queue A item 7")
+    ``lm_head``); the vlm family's layout is qwen3's without qk-norm."""
     dt = dtype or _dt(cfg)
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
 
@@ -118,7 +117,8 @@ def _layer(params: Dict, l: int) -> Dict:
 def _project_qkv(lp: Dict, cfg: ModelConfig, h: torch.Tensor,
                  positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """h: (B, S, d) -> roped q (B, S, H, dh), k/v (B, S, Hkv, dh)."""
+    """h: (B, S, d) -> roped q (B, S, H, dh), k/v (B, S, Hkv, dh);
+    positions (B, S), or (B, S, 3) (t, h, w) ids under M-RoPE."""
     b, s, _ = h.shape
     q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
     if cfg.use_bias:
@@ -129,9 +129,20 @@ def _project_qkv(lp: Dict, cfg: ModelConfig, h: torch.Tensor,
     if cfg.qk_norm:
         q = cm.rms_norm(q, lp["q_norm"])
         k = cm.rms_norm(k, lp["k_norm"])
-    q = cm.apply_rope(q, positions, cfg.rope_theta)
-    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:
+        q = cm.apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = cm.apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = cm.apply_rope(q, positions, cfg.rope_theta)
+        k = cm.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.contiguous()
+
+
+def _step_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """A decode or verify step's positions (B, K) as ``_project_qkv``
+    takes them: under M-RoPE the same id on all three axes, as the
+    reference broadcasts it."""
+    return pos[..., None].expand(*pos.shape, 3) if cfg.mrope else pos
 
 
 def _mlp(lp: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -170,18 +181,44 @@ def logits_of(params: Dict, cfg: ModelConfig, x: torch.Tensor
 
 
 # ------------------------------------------------------------------ forward
-def _forward_blocks(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block input and its positions: ``batch["embeds"]`` (B, S, d)
+    cast to ``cfg.dtype`` when the config takes embeddings and the batch
+    has them, else the embedding rows of ``batch["tokens"]`` (B, S);
+    ``batch["positions"]`` when given, else ``arange(S)`` broadcast to
+    (B, S), or to (B, S, 3) under M-RoPE."""
+    if cfg.embeds_input and "embeds" in batch:
+        x = batch["embeds"].to(_dt(cfg))
+        b, s = x.shape[:2]
+    else:
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = params["embed"][tokens]
+    positions = batch.get("positions")
+    if positions is None:
+        base = torch.arange(s, device=x.device)
+        positions = (base[None, :, None].expand(b, s, 3) if cfg.mrope
+                     else base.expand(b, s))
+    return x, positions
+
+
+def _as_batch(inputs) -> Dict:
+    """A prompt given as tokens (B, S) or as a batch dict, as a dict."""
+    return inputs if isinstance(inputs, dict) else {"tokens": inputs}
+
+
+def _forward_blocks(params: Dict, cfg: ModelConfig, inputs,
                     kvs: Optional[Dict[str, list]] = None,
                     mlp: Callable = _mlp) -> torch.Tensor:
-    """Embed ``tokens`` (B, S) and run every block over the whole sequence,
-    attention through the prefill kernel (causal, the config's window);
-    returns the hidden states (B, S, d) before the final norm.  With
-    ``kvs`` each layer's K/V (quantized with ``cfg.kv_quant``) are appended
-    to it by name.  ``prefill`` and ``apply`` share this loop, and the
-    moe family runs it with its own ``mlp``."""
-    b, s = tokens.shape
-    x = params["embed"][tokens]
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    """Embed ``inputs`` (tokens (B, S), or a batch dict as
+    ``embed_inputs`` takes it) and run every block over the whole
+    sequence, attention through the prefill kernel (causal, the config's
+    window); returns the hidden states (B, S, d) before the final norm.
+    With ``kvs`` each layer's K/V (quantized with ``cfg.kv_quant``) are
+    appended to it by name.  ``prefill`` and ``apply`` share this loop,
+    and the moe family runs it with its own ``mlp``."""
+    x, positions = embed_inputs(params, cfg, _as_batch(inputs))
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
@@ -201,35 +238,39 @@ def _forward_blocks(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def apply(params: Dict, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     """Full-sequence forward: logits (B, S, padded_vocab) at every position
-    of ``batch["tokens"]`` (B, S), as the reference's ``apply`` returns
-    them.  The KV is not kept."""
-    x = _forward_blocks(params, cfg, batch["tokens"])
+    of ``batch["tokens"]`` (B, S) or, for a config that takes them, of
+    ``batch["embeds"]`` (B, S, d), at ``batch["positions"]`` when given
+    (``embed_inputs``), as the reference's ``apply`` returns them.  The KV
+    is not kept."""
+    x = _forward_blocks(params, cfg, batch)
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
     return logits_of(params, cfg, x)
 
 
 # ------------------------------------------------------------------ prefill
-def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+def prefill(params: Dict, cfg: ModelConfig, tokens, *,
             capacity: Optional[int] = None,
             last_positions: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt, build the KV cache, return last-position logits.
 
     tokens: (B, S) prompts, right-padded (pads are causally inert) or, on
-    the wave path, left-padded.  The cache holds ``capacity`` positions
-    (default S; zero-padded past S), or for a sliding-window config a ring
-    of ``sliding_window`` positions where position p sits at slot
-    p % window.  ``last_positions`` ((B,)) takes each row's logits at its
-    own final real token.  Returns (logits (B, 1, padded_vocab),
-    {"k", "v": (L, B, cap, Hkv, dh), "length": S, a () int32 tensor});
+    the wave path, left-padded; or a batch dict as ``apply`` takes it
+    (embeddings and explicit positions, the vlm family).  The cache holds
+    ``capacity`` positions (default S; zero-padded past S), or for a
+    sliding-window config a ring of ``sliding_window`` positions where
+    position p sits at slot p % window.  ``last_positions`` ((B,)) takes
+    each row's logits at its own final real token.  Returns (logits
+    (B, 1, padded_vocab), {"k", "v": (L, B, cap, Hkv, dh), "length": S, a
+    () int32 tensor});
     with ``cfg.kv_quant`` the returned K/V are int8 plus
     "k_scale"/"v_scale" (L, B, cap, Hkv, 1) bf16 (attention itself ran on
     the fp k/v).
     """
-    b, s = tokens.shape
-    cap = _capacity(cfg, s, capacity)
     kvs: Dict[str, list] = {}
     x = _forward_blocks(params, cfg, tokens, kvs)
+    b, s = x.shape[:2]
+    cap = _capacity(cfg, s, capacity)
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
     if last_positions is None:
         x_last = x[:, -1:]
@@ -314,11 +355,12 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     rows = torch.arange(lens.shape[0], device=lens.device)
     slot = lens % cap
     n_valid = torch.clamp(lens + 1, max=cap).to(torch.int32)
+    pos = _step_positions(cfg, lens[:, None])
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         kc, vc = cache["k"][l], cache["v"][l]
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
-        q, k, v = _project_qkv(lp, cfg, h, lens[:, None])
+        q, k, v = _project_qkv(lp, cfg, h, pos)
         writes = {"k": k, "v": v}
         if cfg.kv_quant:
             writes["k"], writes["k_scale"] = kv_quantize(k)
@@ -438,11 +480,12 @@ def paged_decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     phys_page = bt[rows, torch.clamp(lens // page, max=maxp - 1)].long()
     page_slot = lens % page
     attend = (lengths + 1).to(torch.int32)
+    pos = _step_positions(cfg, lens[:, None])
     pools = {n: cache[n] for n in _pool_names(cache)}
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
-        q, k, v = _project_qkv(lp, cfg, h, lens[:, None])
+        q, k, v = _project_qkv(lp, cfg, h, pos)
         _scatter_pool_writes(pools, l, phys_page, page_slot, k, v,
                              squeeze=True)
         attn = _paged_attention(pools, l, q, bt, attend, verify=False)
@@ -477,11 +520,12 @@ def paged_verify_step(params: Dict, cfg: ModelConfig, cache: Dict,
     page_idx = torch.clamp(pos_abs // page, max=maxp - 1)
     phys_page = bt[rows[:, None], page_idx].long()
     page_slot = pos_abs % page
+    pos = _step_positions(cfg, pos_abs)
     pools = {n: cache[n] for n in _pool_names(cache)}
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
-        q, k, v = _project_qkv(lp, cfg, h, pos_abs)
+        q, k, v = _project_qkv(lp, cfg, h, pos)
         _scatter_pool_writes(pools, l, phys_page, page_slot, k, v,
                              squeeze=False)
         attn = _paged_attention(pools, l, q, bt, lengths, verify=True)

@@ -1,11 +1,13 @@
 """Family registry of the port: the uniform interface the engine calls.
 
-Port of ``repro.models.registry`` for the dense family (the full-sequence
-forward, slot decode, paged decode and the speculative paged verify) and
-the moe family (the full-sequence forward with its aux loss, and the
-lock-step decode the engine's wave path runs).  ``apply_logits`` drops
-the aux loss, ``apply_with_aux`` keeps it.  The other families (vlm,
-hybrid, ssm, audio) are ROADMAP Queue A item 7.
+Port of ``repro.models.registry`` for the dense and vlm families (one
+module: the full-sequence forward, slot decode, paged decode and the
+speculative paged verify), the moe family (the full-sequence forward with
+its aux loss, and the lock-step decode the engine's wave path runs) and
+the hybrid family (RG-LRU and local attention, also on waves).
+``apply_logits`` drops the aux loss, ``apply_with_aux`` keeps it (zero
+for a family without one).  The ssm and audio families are ROADMAP Queue
+A item 7.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models import dense, moe
+from repro_torch.models import dense, moe, rglru
 from repro_torch.models.config import ModelConfig
 
 
@@ -41,8 +43,16 @@ FAMILIES: Dict[str, Family] = {
                     init_paged_pools=dense.init_paged_pools,
                     prefill_to_pages=dense.prefill_to_pages,
                     paged_verify=dense.paged_verify_step),
+    "vlm": Family(dense.init, dense.apply, dense.prefill,
+                  dense.decode_step,
+                  slot_decode=True, paged_decode=dense.paged_decode_step,
+                  init_paged_pools=dense.init_paged_pools,
+                  prefill_to_pages=dense.prefill_to_pages,
+                  paged_verify=dense.paged_verify_step),
     "moe": Family(moe.init, moe.apply, moe.prefill, moe.decode_step,
                   has_aux=True),
+    "hybrid": Family(rglru.init, rglru.apply, rglru.prefill,
+                     rglru.decode_step),
 }
 
 
@@ -61,7 +71,7 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 def apply_logits(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     """Full-sequence forward returning the logits at every position of
-    ``batch["tokens"]`` (an aux loss is dropped)."""
+    the batch (an aux loss is dropped)."""
     fam = get_family(cfg)
     out = fam.apply(params, cfg, batch)
     return out[0] if fam.has_aux else out

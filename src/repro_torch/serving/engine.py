@@ -47,15 +47,15 @@ A paged engine is also either end of a disaggregated pair (DESIGN.md
 prefilled row as a ``KVHandoff`` (copies of its pages and its next-token
 logits) and ``accept_handoff`` lands one in this engine's own pool.
 
-Families without per-row cache depths (moe) and sliding-window configs
-run the reference's **left-padded lock-step waves** instead
+Families without per-row cache depths (moe, hybrid) and sliding-window
+configs run the reference's **left-padded lock-step waves** instead
 (``_generate_wave``, entered from ``serve`` and ``step``): up to
 ``max_batch`` prompts left-padded with ``eos_id``, one prefill, then
 decode steps at one shared cache length until every row is done.  Such an
 engine refuses ``paged=True`` (and so the speculative, prefix-cache and
 disaggregated backends) with the reference's ``ValueError``.  The families
-the port does not have yet (vlm, hybrid, ssm, audio) raise at
-``registry.get_family``, naming ROADMAP Queue A item 7.
+the port does not have yet (ssm, audio) raise at ``registry.get_family``,
+naming ROADMAP Queue A item 7.
 
 Wall times are measured by ``Tracer.wall`` blocks that end in a device
 synchronisation, because they feed ``EngineStats`` and so
@@ -180,8 +180,8 @@ def _sync(device: torch.device) -> None:
 
 class Engine:
     """Continuous batching over the PyTorch dense model (slot, paged or
-    speculative), or left-padded lock-step waves for the moe family and
-    window configs (see the module docstring)."""
+    speculative), or left-padded lock-step waves for the moe and hybrid
+    families and window configs (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  bucket: int = 64, seed: int = 0,

@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.kernels import _build, flash_decode, ops, paged_decode
 from repro_torch.kernels.decode_split import (SPLIT_REL, TARGET_BLOCKS_INT8,
-                                              decode_splits, head_scaled_err)
+                                              decode_splits, head_scaled_err,
+                                              target_blocks)
 from repro_torch.kernels.ref import (decode_ref, flash_ref, paged_decode_ref,
                                      paged_decode_quant_ref,
                                      paged_verify_quant_ref, paged_verify_ref,
@@ -231,6 +232,12 @@ GPU_DECODE = [(b, s, h, hkv, dd, (clen,) * b, win)
     (2, 300, 96, 8, 128, (300, 17), 64),           # rep 12, window
     (4, 64, 48, 8, 128, (40,) * 4, None),          # dbrx-132b wave, rep 6
     (4, 64, 16, 8, 64, (40,) * 4, None),           # granite-moe wave, rep 2
+    (4, 64, 28, 4, 128, (25, 1, 33, 0), None),     # qwen2-vl-7b, rep 7
+    # recurrentgemma-9b's ring decode: D = 256, rep 16, one length a wave
+    (4, 64, 16, 1, 256, (40,) * 4, None),
+    (4, 2048, 16, 1, 256, (2048,) * 4, None),      # a full ring
+    (3, 300, 16, 1, 256, (300, 0, 17), 64),        # window, a dead row
+    (2, 100, 16, 1, 256, (200, 3), 50),            # window past the cache
 ]
 
 
@@ -264,6 +271,11 @@ GPU_DECODE_SPLIT = [
     (2, 2048, 32, 8, 128, (2500, 100), 300),
     (1, 1000, 32, 8, 128, (999,), 100),
     (2, 4096, 16, 1, 64, (4096, 2500), None),
+    (2, 4096, 28, 4, 128, (4096, 2500), None),      # rep 7
+    # D = 256, rep 16: one block an SM, so its own split target
+    (2, 2048, 16, 1, 256, (2048, 1500), None),
+    (3, 2048, 16, 1, 256, (2048, 700, 0), None),    # ragged, a dead row
+    (2, 4096, 16, 1, 256, (4096, 3000), 1500),
 ]
 
 
@@ -279,7 +291,7 @@ def test_decode_kernel_split_rows_match_plain_on_card(cuda, case, dt):
     got = ops.decode(q, kc, vc, ln, window=win)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_decode"] == before + 1
-    splits = decode_splits(b, hkv, s)
+    splits = decode_splits(b, hkv, s, target_blocks(d))
     assert splits > 1
     assert flash_decode.flash_decode_cuda.last_splits == (
         splits if dt == "bfloat16" else 1)
@@ -317,6 +329,7 @@ GPU_VERIFY = [(b, kq, h, hkv, 128, page, lengths, tp)
     (3, 5, 64, 8, 128, 16, (59, 60, 11), None),    # qwen3-32b, rep 8
     (4, 5, 96, 8, 128, 16, (30, 31, 9, 0), 2),     # command-r-plus, rep 12
     (2, 33, 96, 8, 128, 16, (20, 5), 2),           # 396 rows, past the table
+    (4, 5, 28, 4, 128, 16, (28, 1, 40, 0), None),  # qwen2-vl-7b, rep 7
 ]
 
 
@@ -373,6 +386,7 @@ GPU_DECODE_INT8 = [
     (4, 36, 4, 128, 16, (28, 1, 40, 0)),           # starcoder2-7b, rep 9
     (4, 96, 8, 128, 16, (25, 1, 32, 29)),          # command-r-plus, rep 12
     (2, 64, 8, 128, 16, (1000, 17)),               # qwen3-32b, rep 8
+    (4, 28, 4, 128, 16, (25, 1, 32, 0)),           # qwen2-vl-7b, rep 7
 ]
 
 

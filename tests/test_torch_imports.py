@@ -10,7 +10,8 @@
   ``repro.sim.executor`` (under ``_``-prefixed names where the linter's
   twin-drift rule would see a second definition): every constant equals
   the reference's, every shared predicate agrees on a grid of inputs,
-  and the sim executors take the reference's keyword defaults.
+  and the sim executors take the reference's keyword defaults; the RG-LRU
+  constant (``_C_RGLRU``) equals ``repro.models.rglru.C_RGLRU``.
 * ``python -m repro.analysis`` still finds nothing new.
 """
 
@@ -30,7 +31,9 @@ import repro.obs.tracer as jtracer
 import repro.sim.executor as jexec
 import repro.sim.servicemodel as jsm
 import repro.core.network as jnet
+import repro.models.rglru as jrglru
 import repro_torch.core.network as tnet
+import repro_torch.models.rglru as trglru
 import repro_torch.obs.tracer as ttracer
 import repro_torch.sim.executor as texec
 import repro_torch.sim.servicemodel as tsm
@@ -69,7 +72,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
     for must in ("repro_torch.launch.serve", "repro_torch.kernels.ops",
-                 "repro_torch.serving.engine", "repro_torch.core.network"):
+                 "repro_torch.serving.engine", "repro_torch.core.network",
+                 "repro_torch.models.rglru"):
         assert must in got["modules"]
 
 
@@ -110,6 +114,7 @@ def test_copied_constants_equal_the_reference():
         assert getattr(tsm, "_" + name) == getattr(jsm, name), name
     assert ttracer._SIM == jtracer.SIM and ttracer._WALL == jtracer.WALL
     assert tnet._TREASURY == jnet.TREASURY
+    assert trglru._C_RGLRU == jrglru.C_RGLRU
     for args in [("qwen3-8b", "RTX3090", "sglang", "bf16", 0.55),
                  ("qwen3-32b", "A100", "vllm", "fp8wo", 0.7)]:
         assert tsm.make_profile(*args).__dict__ == \
@@ -118,7 +123,8 @@ def test_copied_constants_equal_the_reference():
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "qwen3-32b", "starcoder2-7b",
                                   "command-r-plus-104b",
-                                  "granite-moe-1b-a400m", "dbrx-132b"])
+                                  "granite-moe-1b-a400m", "dbrx-132b",
+                                  "qwen2-vl-7b", "recurrentgemma-9b"])
 def test_config_copies_equal_the_reference(arch):
     """Each ported config, its smoke size, its draft and its ``long_500k``
     window variant equal ``repro.configs``' field by field; the copied

@@ -187,6 +187,17 @@ GPU_PREFILL = [(b, s, h, hkv, 128, win, causal, None)
     (1, 300, 96, 8, 128, None, True, None),
     (2, 77, 64, 8, 128, 64, True, None),       # qwen3-32b, rep 8, window
     (1, 129, 48, 8, 128, None, True, None),    # dbrx-132b, rep 6
+    (4, 32, 28, 4, 128, None, True, None),     # qwen2-vl-7b, rep 7
+    (1, 300, 28, 4, 128, None, True, None),
+    (2, 77, 28, 4, 128, 64, True, 100),        # rep 7, window, sq < skv
+    # recurrentgemma-9b's local attention: D = 256, rep 16 (one 64-row
+    # warpgroup a CTA in bf16: 4 query positions), window 2048
+    (4, 32, 16, 1, 256, 2048, True, None),     # serve prefill
+    (1, 2100, 16, 1, 256, 2048, True, None),   # the window masks keys
+    (1, 300, 16, 1, 256, 64, True, None),      # window edge inside tiles
+    (2, 77, 16, 1, 256, None, False, None),
+    (2, 129, 16, 2, 256, 33, True, 200),       # rep 8, sq < skv
+    (1, 300, 16, 1, 256, None, True, 130),     # sq > skv
 ]
 
 
@@ -230,6 +241,7 @@ GPU_PAGED = [(b, h, hkv, 128, page, lengths)
     (4, 36, 4, 128, 16, (28, 1, 40, 0)),      # starcoder2-7b, rep 9
     (4, 96, 8, 128, 16, (25, 1, 32, 29)),     # command-r-plus-104b, rep 12
     (3, 64, 8, 128, 16, (700, 0, 33)),        # qwen3-32b, rep 8
+    (4, 28, 4, 128, 16, (25, 1, 32, 0)),      # qwen2-vl-7b, rep 7
 ]
 
 
@@ -260,6 +272,7 @@ GPU_PAGED_SPLIT = [
     (3, 32, 8, 128, 16, (4096, 1500, 0)),
     (3, 32, 8, 128, 48, (2000, 700, 0)),
     (2, 32, 2, 128, 16, (3000, 0)),
+    (2, 28, 4, 128, 16, (4096, 1500)),        # rep 7
 ]
 
 
