@@ -34,15 +34,20 @@ Phases, each of which raises (exit code != 0) when it fails:
    at K = 1 each must equal its paged decode kernel at ``lengths + 1``.
    The bf16 int8 paged decode kernel is also timed at 32 rows x 4096 with
    1-4 splits forced (``int8_split_sweep``: what its split target rests
-   on).  Then every row the dense variants and the moe, vlm and hybrid
-   families run, at their head ratios (``RATIOS``: rep 9 = 36/4, rep 12 =
-   96/8, rep 8 = 64/8 and rep 7 = 28/4 for rows 1-4 with 2q and 3q; rep 6
-   = 48/8, at D=64 rep 2 = 16/8 and at D=256 rep 16 = 16/1 for rows 1 and
-   4), in both dtypes, at the serve shape and one long shape (S=4096
-   prefill, 32 x 4096 decode and verify), the verify rows at rep 12 also
-   at K = 33 (396 query rows a kv head); at D=256 also the prefill under a
-   2048-token window, a decode over 32 rings of 2048, and two split
-   decode cases (2 x 2048, and 2048/700/0 with a dead row).
+   on).  Then every row the dense variants and the moe, vlm, hybrid and
+   audio families run, at their head ratios (``RATIOS``: rep 9 = 36/4,
+   rep 12 = 96/8, rep 8 = 64/8 and rep 7 = 28/4 for rows 1-4 with 2q and
+   3q; rep 6 = 48/8, at D=64 rep 2 = 16/8 and at D=256 rep 16 = 16/1 for
+   rows 1 and 4), in both dtypes, at the serve shape and one long shape
+   (S=4096 prefill, 32 x 4096 decode and verify), the verify rows at rep
+   12 also at K = 33 (396 query rows a kv head); at D=256 also the
+   prefill under a 2048-token window, a decode over 32 rings of 2048, and
+   two split decode cases (2 x 2048, and 2048/700/0 with a dead row);
+   whisper-base's rows 1 and 4 (rep 1 = 8/8, D=64) at its own shapes
+   instead: the encoder (B=4, S=1500, no mask), the cross prefill (B=4,
+   32 queries over 1500 keys, no mask), the decoder's causal prompt (B=4,
+   S=32), the cross decode over the 1500-frame cache (B=4, which must
+   split in bf16) and the self ring (B=4, 40 of 48 positions).
    Each bf16 case prints
    ``vs_library`` (ms / library_ms: below 1, faster than the library call)
    and ``bound_share`` (bound_ms / ms: the share of the least time the
@@ -79,13 +84,18 @@ Phases, each of which raises (exit code != 0) when it fails:
    function), qwen2-vl-7b (28 layers) on slot, paged and speculative
    engines, recurrentgemma-9b (8 of 38 layers: two groups and the
    recurrent tail) on wave engines with one prompt of 2100 tokens, past
-   its 2048-token window: every decode, verify and wave-decode logit row
+   its 2048-token window, xlstm-1.3b (all 48 layers) on wave engines with
+   a 150-token prompt (two chunks and a padded third): every decode,
+   verify and wave-decode logit row
    held to a fresh prefill over the same tokens (a wave row's with its
    left pads) within 1e-3 * max|logit|, every token the greedy choice of
    a fresh prefill, and each arch's tokens identical across its backends;
    and qwen2-vl-7b's ``dense.apply`` on embeddings at distinct (t, h, w)
    ids through the kernels held to the same call on the plain prefill
-   within 1e-3 * max|logit|;
+   within 1e-3 * max|logit|; whisper-base (6 + 6 layers, biases and
+   norms perturbed) on two 16-token prompts over 1500 seeded frames:
+   ``prefill`` and 8 greedy ``decode_step``s, each one's logits held to
+   ``apply`` over the same frames and tokens within 1e-3 * max|logit|;
 4. the main paths, through ``repro_torch.launch.serve.run`` -- the
    decentralized protocol assigns 8 requests and two nodes serve them with
    full-width qwen3-8b (36 layers, bfloat16, random weights seeded per
@@ -111,7 +121,13 @@ Phases, each of which raises (exit code != 0) when it fails:
    [4k] granite-moe-1b-a400m, all 24 layers, on the wave engines the moe
    family gets, [4l] qwen2-vl-7b, all 28 layers, on paged engines, and
    [4m] recurrentgemma-9b, all 38 layers, on wave engines (local attention
-   at D=256), each node its own weights.  Every request must return tokens,
+   at D=256), [4n] xlstm-1.3b, all 48 layers, on wave engines, whose path
+   must launch no port kernel, each node its own weights; then [4o]
+   whisper-base (bf16, perturbed) through the family interface, which the
+   driver's wave path cannot reach: ``prefill`` on B=4 seeded 1500-frame
+   embeddings and 32-token prompts and 16 greedy ``decode_step``s, with 18
+   launches of row 1 and 12 of row 4 a step (both D=64), each cross decode
+   also merging its splits.  Every request must return tokens,
    and every kernel of the phase's path must have launched: the launch
    counts are zeroed just before each run and read just after it, and the
    shapes, tables and lengths the run hands each kernel are recorded.
@@ -124,7 +140,7 @@ Phases, each of which raises (exit code != 0) when it fails:
    phase gave it: the most frequent prefill shape, and the decode or verify
    step of median attended length with that step's own table and lengths;
    the verify kernels also at phase 4f's warm prefill; each kernel of
-   phases 4h-4m at that phase's shapes and head ratio.
+   phases 4h-4o at that phase's shapes and head ratio.
 
 Times (``ms``, ``plain_ms``, ``library_ms``) are device time per call from
 ``torch.profiler`` over repeated calls on the same inputs (warm L2),
@@ -142,7 +158,7 @@ card could take (``bound_ms``: the larger of the bytes it must move over
 3.35 TB/s and the operations it must do over the card's peak for their
 type), with ``vs_library`` and ``bound_share``, its launches in phases
 4f and 4g (``launches_4f``, ``launches_4g``), and, for each of phases
-4h-4m whose path runs it, its launches and times there
+4h-4o whose path runs it, its launches and times there
 (``arch_phases``); the D=256 entries are read in phase 4m.  The last line is ``{"ok":
 true, "device": ...}``.  Without a CUDA card, or outside a checkout of the
 repository, the script exits with an error before printing any result.
@@ -199,8 +215,9 @@ PHASE_MODE = {"4": ("paged", False), "4b": ("slot", False),
               "4e": ("spec", True), "4g": ("disagg", False),
               "4h": ("paged", False), "4i": ("slot", False),
               "4j": ("spec", False), "4k": ("slot", False),
-              "4l": ("paged", False), "4m": ("slot", False)}
-# the serve phases of the dense variants, the moe, vlm and hybrid
+              "4l": ("paged", False), "4m": ("slot", False),
+              "4n": ("slot", False)}
+# the serve phases of the dense variants, the moe, vlm, hybrid and ssm
 # families: (arch, layers served, one set of weights for both nodes).  qwen3-32b (65.5 GB of bf16
 # weights) and command-r-plus-104b (56.6 GB at 16 of its 64 layers; 208 GB
 # whole) fit one 80 GB card only with the two nodes sharing their weights,
@@ -211,7 +228,8 @@ PHASE_ARCH = {"4h": ("starcoder2-7b", 32, False),
               "4j": ("command-r-plus-104b", 16, True),
               "4k": ("granite-moe-1b-a400m", 24, False),
               "4l": ("qwen2-vl-7b", 28, False),
-              "4m": ("recurrentgemma-9b", 38, False)}
+              "4m": ("recurrentgemma-9b", 38, False),
+              "4n": ("xlstm-1.3b", 48, False)}
 # (kernel, head width) pairs each serve phase's path must launch
 PATHS = {"4": {("flash_attention", 128), ("paged_decode", 128)},
          "4b": {("flash_attention", 128), ("flash_decode", 128)},
@@ -230,7 +248,11 @@ PATHS = {"4": {("flash_attention", 128), ("paged_decode", 128)},
                 ("flash_decode", 64), ("paged_verify", 128)},
          "4k": {("flash_attention", 64), ("flash_decode", 64)},
          "4l": {("flash_attention", 128), ("paged_decode", 128)},
-         "4m": {("flash_attention", 256), ("flash_decode", 256)}}
+         "4m": {("flash_attention", 256), ("flash_decode", 256)},
+         # xlstm-1.3b has no attention: its path must launch no port kernel
+         "4n": set(),
+         # whisper-base through the family interface (not the driver)
+         "4o": {("flash_attention", 64), ("flash_decode", 64)}}
 KERNEL_OPS = {  # kernel: the ops entry point the model calls for it
     "flash_attention": "attention", "paged_decode": "paged_decode",
     "flash_decode": "decode", "paged_verify": "paged_verify",
@@ -301,12 +323,9 @@ def _profiled(run, iters: int, edges: int = 0) -> list:
 _SPIN_NAMES: set = set()
 
 
-def _kernel_records(run, iters: int, skip=frozenset()) -> list:
-    """``_profiled`` with ``EDGE_SPINS`` spinning kernels on each side of
-    the calls, so that records a session loses at its start or its end are
-    theirs rather than the calls', and with the spinning kernels (named by
-    a profiled run of them alone, once) and those named in ``skip`` left
-    out."""
+def spin_names() -> set:
+    """The device kernel names of ``torch.cuda._sleep`` (named by a
+    profiled run of the spinning kernels alone, once)."""
     import torch
     for _ in range(3):
         if not _SPIN_NAMES:
@@ -315,8 +334,17 @@ def _kernel_records(run, iters: int, skip=frozenset()) -> list:
     if not _SPIN_NAMES:
         raise RuntimeError("the profiler recorded none of the spinning "
                            "kernels in 3 sessions")
+    return _SPIN_NAMES
+
+
+def _kernel_records(run, iters: int, skip=frozenset()) -> list:
+    """``_profiled`` with ``EDGE_SPINS`` spinning kernels on each side of
+    the calls, so that records a session loses at its start or its end are
+    theirs rather than the calls', and with the spinning kernels and those
+    named in ``skip`` left out."""
+    spins = spin_names()
     return [(name, us) for name, us in _profiled(run, iters, EDGE_SPINS)
-            if name not in skip and name not in _SPIN_NAMES]
+            if name not in skip and name not in spins]
 
 
 def device_ms(fn, iters: int, attempts: int = 3) -> tuple[float, str]:
@@ -568,42 +596,47 @@ def ptxas_report(logs, fragments) -> dict:
 
 # ------------------------------------------------------------ phases 2, 5
 def prefill_case(name, b, s, dt, *, heads=TARGET, window=None, causal=True,
-                 iters=50):
+                 skv=None, iters=50):
+    """The prefill kernel on ``s`` query positions against ``skv`` (default
+    ``s``) keys."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ref import flash_ref
     h, hkv, d = heads
     dtype = getattr(torch, dt)
-    g = torch.Generator("cuda").manual_seed(b * 1000 + s + d)
+    skv = skv or s
+    g = torch.Generator("cuda").manual_seed(b * 1000 + s + d + skv - s)
     q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+               for shape in ((b, s, h, d), (b, skv, hkv, d),
+                             (b, skv, hkv, d)))
     got = flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err = check(f"prefill {name}", got,
                 flash_ref(q, k, v, causal=causal, window=window), dt)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pos = torch.arange(s, device="cuda")
+    qp, kp = torch.arange(s), torch.arange(skv)
     mask = None
     if window is not None:
-        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
-                                                 < window)
+        mask = ((qp[:, None] >= kp[None, :])
+                & (qp[:, None] - kp[None, :] < window)).cuda()
     t = timings(
         lambda: flash_attention_cuda(q, k, v, causal=causal, window=window),
         lambda: flash_ref(q, k, v, causal=causal, window=window),
         lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=True), iters)
-    qp = torch.arange(s)
-    vis = torch.ones((s, s), dtype=torch.bool)
+    vis = torch.ones((s, skv), dtype=torch.bool)
     if causal:
-        vis &= qp[:, None] >= qp[None, :]
+        vis &= qp[:, None] >= kp[None, :]
     if window is not None:
-        vis &= qp[:, None] - qp[None, :] < window
+        vis &= qp[:, None] - kp[None, :] < window
     flops = 4.0 * b * h * d * int(vis.sum())
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    return dict(case=name, dtype=dt, shape=f"B={b} S={s} H={h} Hkv={hkv} "
-                f"D={d}" + (f" window={window}" if window else "")
+    return dict(case=name, dtype=dt, shape=f"B={b} S={s} "
+                + (f"Skv={skv} " if skv != s else "")
+                + f"H={h} Hkv={hkv} D={d}"
+                + (f" window={window}" if window else "")
                 + ("" if causal else " non-causal"),
                 max_abs_err=err, tol=TOL[dt], **t, **bound(nbytes, flops, dt))
 
@@ -1017,7 +1050,14 @@ RATIOS = {
     "rep2 D=64 (granite-moe-1b-a400m)": ((16, 8, 64), ("1", "4")),
     "rep7 (qwen2-vl-7b)": ((28, 4, 128), ("1", "2", "2q", "3", "3q", "4")),
     "rep16 D=256 (recurrentgemma-9b)": ((16, 1, 256), ("1", "4")),
+    "rep1 D=64 (whisper-base)": ((8, 8, 64), ("1", "4")),
 }
+# whisper-base's rows at its own shapes (``whisper_cases``): the encoder
+# over 1500 frames, the cross attention of a 32-token prompt over them
+# and the decoder's causal prompt; the cross decode over all 1500 frames
+# (which splits in bf16) and the self-attention ring of a 32 + 16 wave
+WHISPER_HEADS, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = (
+    (8, 8, 64), 1500, 32, 16)
 # recurrentgemma-9b's local attention: its 2048-token window over a 4096
 # prefill, a ring of 2048 positions at 32 rows, and bf16 split cases (one
 # block an SM at D = 256: its own split target): two full rings, and
@@ -1042,6 +1082,9 @@ def phase_ratios() -> dict:
     for label, (heads, rows) in RATIOS.items():
         cases = []
         for dt in ("bfloat16", "float32"):
+            if heads == WHISPER_HEADS:
+                cases += whisper_cases(dt)
+                continue
             if "1" in rows:
                 cases += [("1", prefill_case("main", 4, 32, dt, heads=heads,
                                              iters=50)),
@@ -1089,19 +1132,39 @@ def phase_ratios() -> dict:
         out[label] = [dict(with_ratios(r), row=row) for row, r in cases]
         for r in out[label]:
             show(f"row {r['row']} {label.split()[0]}", r)
-            if (r["case"] in ("few long", "ragged")
-                    and r["dtype"] == "bfloat16" and r["splits"] < 2):
+            if (r["case"] in ("few long", "ragged", "cross")
+                    and r.get("splits") == 1 and r["dtype"] == "bfloat16"):
                 raise AssertionError(f"{label} {r['case']}: ran with "
                                      f"{r['splits']} split")
     log("ratio_cases " + json.dumps(out))
     return out
 
 
+def whisper_cases(dt) -> list:
+    """[2] whisper-base's rows 1 and 4 (rep 1, D = 64) at the shapes of
+    phase 4o, as (row, case) pairs."""
+    b, se, s = 4, WHISPER_FRAMES, WHISPER_PROMPT
+    cap = s + WHISPER_STEPS
+    heads = WHISPER_HEADS
+    return [
+        ("1", prefill_case("encoder", b, se, dt, heads=heads, causal=False,
+                           iters=20)),
+        ("1", prefill_case("cross", b, s, dt, heads=heads, causal=False,
+                           skv=se, iters=50)),
+        ("1", prefill_case("main", b, s, dt, heads=heads, iters=50)),
+        ("4", decode_case("cross", se, [se] * b, dt, heads=heads, iters=50)),
+        ("4", decode_case("ring", cap, [cap - 8] * b, dt, heads=heads,
+                          iters=50))]
+
+
 def _most_common_prefill(seen, d):
+    """The prefill shape (q shape, causal, window, Skv) called most often
+    at head width ``d``; of shapes called as often, the one of most query
+    and key positions (whisper's encoder, in phase 4o)."""
     shapes = collections.Counter(x for x in seen if x[0][3] == d)
-    log(f"  prefill shapes at D={d} (q shape, causal, window: calls): "
+    log(f"  prefill shapes at D={d} (q shape, causal, window, Skv: calls): "
         f"{ {str(k): v for k, v in shapes.items()} }")
-    return shapes.most_common(1)[0][0]
+    return max(shapes, key=lambda x: (shapes[x], x[0][1] * x[3]))
 
 
 def _median(steps, label):
@@ -1126,12 +1189,13 @@ def phase_main_shapes(seen) -> dict:
     out = {}
     for entry, heads, phase in (("flash_attention", TARGET, "4"),
                                 ("flash_attention_d64", DRAFT, "4c")):
-        (b, s, h, d), causal, window = _most_common_prefill(
+        (b, s, h, d), causal, window, skv = _most_common_prefill(
             seen[phase]["flash_attention"], heads[2])
         if (h, d) != (heads[0], heads[2]):
             raise AssertionError(f"{entry}: prefill heads {h} x {d}")
         out[entry] = prefill_case("main", b, s, "bfloat16", heads=heads,
-                                  causal=causal, window=window, iters=200)
+                                  causal=causal, window=window, skv=skv,
+                                  iters=200)
     bt, ln = _median(seen["4"]["paged_decode"], "paged decode (phase 4)")
     out["paged_decode"] = paged_case("main", _dense_pages(bt),
                                      [int(x) for x in ln], "bfloat16",
@@ -1462,15 +1526,16 @@ def phase_consistency(n_layers: int):
     return {"worst_rel_diff": worst}
 
 
-# phase 3 at the dense variants, the moe, vlm and hybrid families: (arch,
-# layers held (the rest cut for time or memory), backends, capacity
+# phase 3 at the dense variants, the moe, vlm, hybrid and ssm families:
+# (arch, layers held (the rest cut for time or memory), backends, capacity
 # factor, prompt lengths).  The moe checks lift the capacity factor to 8,
 # as the reference's own prefill/decode test does: a prefill of S tokens
 # can drop tokens that a one-token decode never drops, so only without
 # drops are the two the same function.  recurrentgemma-9b keeps two groups
 # and the two-layer recurrent tail (8 of 38 layers), and one prompt longer
 # than its 2048-token window, so that the prefill's window masks keys and
-# the decode ring wraps
+# the decode ring wraps.  xlstm-1.3b's 150-token prompt pads the wave to
+# 160 positions: two full 64-position chunks and a padded third
 ARCH_CONSISTENCY = (
     ("starcoder2-7b", 32, ("slot", "paged", "spec"), None, (24, 11)),
     ("qwen3-32b", 8, ("slot", "paged"), None, (24, 11)),
@@ -1479,9 +1544,10 @@ ARCH_CONSISTENCY = (
     ("dbrx-132b", 2, ("wave",), 8.0, (24, 11)),
     ("qwen2-vl-7b", 28, ("slot", "paged", "spec"), None, (24, 11)),
     ("recurrentgemma-9b", 8, ("wave",), None, (2100, 11)),
+    ("xlstm-1.3b", 48, ("wave",), None, (150, 11)),
 )
 _SCALES = ("scale", "q_norm", "k_norm")
-_BIASES = ("bias", "bq", "bk", "bv", "bo", "b_up", "b_down")
+_BIASES = ("bias", "bq", "bk", "bv", "bo", "b_up", "b_down", "conv_b")
 
 
 def perturb(params, seed: int):
@@ -1515,7 +1581,7 @@ def _free():
 
 def phase_arch_consistency(arch, n_layers, backends, capacity_factor,
                            prompt_lens):
-    """[3, dense variants, moe, vlm and hybrid] ``arch`` at full width,
+    """[3, dense variants, moe, vlm, hybrid and ssm] ``arch`` at full width,
     ``n_layers`` layers, float32, on the port's seeded init with its biases
     and norms perturbed: two requests of ``prompt_lens`` tokens served on
     each of ``backends`` (slot, paged, spec with ``cfg.draft()``, or a wave
@@ -1641,6 +1707,49 @@ def mrope_on_card(cfg, params) -> float:
     return rel
 
 
+def phase_whisper_consistency(steps: int = 8) -> dict:
+    """[3, audio] whisper-base at full width (6 encoder and 6 decoder
+    layers), float32, on the port's seeded init with its biases and norms
+    perturbed: ``prefill`` of two 16-token prompts over 1500 seeded frames,
+    then ``steps`` greedy ``decode_step``s; the prefill's and every step's
+    logits held to ``apply`` over the same frames and tokens within 1e-3 x
+    max|logit| (the ring holds every position, so the two compute the
+    same function)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serving.sampling import masked_logits
+    cfg = get_config("whisper-base").replace(dtype="float32")
+    fam = registry.get_family(cfg)
+    params = perturb(registry.init(cfg, torch.Generator("cuda").manual_seed(
+        7), "cuda"), 8)
+    g = torch.Generator("cuda").manual_seed(9)
+    emb = torch.randn((2, WHISPER_FRAMES, cfg.d_model), generator=g,
+                      device="cuda")
+    seq = torch.randint(2, cfg.vocab_size, (2, 16), generator=g,
+                        device="cuda")
+    kit = Consistency(cfg, params)
+    logits, cache = fam.prefill(params, cfg, {"encoder_embeds": emb,
+                                              "tokens": seq},
+                                capacity=seq.shape[1] + steps)
+    for t in range(steps + 1):
+        want = fam.apply(params, cfg, {"encoder_embeds": emb,
+                                       "tokens": seq})[:, -1]
+        kit.held("whisper", logits[:, -1].float().cpu(), want.float().cpu(),
+                 f"whisper after {seq.shape[1]} tokens")
+        if t == steps:
+            break
+        nt = torch.argmax(masked_logits(logits[:, -1], cfg.vocab_size),
+                          dim=-1)[:, None]
+        seq = torch.cat([seq, nt], dim=1)
+        logits, cache = fam.decode_step(params, cfg, cache, nt)
+    log(f"  whisper-base fp32, {cfg.n_encoder_layers}+{cfg.n_layers} "
+        f"layers, B=2 over {WHISPER_FRAMES} frames: prefill and {steps} "
+        f"decode steps held to apply: worst |diff| / max|logit| = "
+        f"{kit.worst['whisper']:.2e} (limit 1e-3)")
+    return dict(steps=steps, worst_rel_diff=kit.worst["whisper"])
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1652,7 +1761,8 @@ def _leaves(tree):
 # ------------------------------------------------------------ phase 4
 def recording_ops(ops, seen, widths, heads=None):
     """Wrap the attention entry points the model calls so that each call
-    also notes what it was given: the prefill's (q shape, causal, window);
+    also notes what it was given: the prefill's (q shape, causal, window,
+    key positions);
     once per decode or verify step (one lengths tensor serves all layers) a
     host copy of its shapes, table and lengths; every call's head width in
     ``widths``, and with ``heads`` every call's (kernel, H, Hkv, D).
@@ -1669,7 +1779,8 @@ def recording_ops(ops, seen, widths, heads=None):
     def att(q, k, v, *, causal=True, window=None):
         widths["flash_attention", q.shape[3]] += 1
         heads["flash_attention", q.shape[2], k.shape[2], q.shape[3]] += 1
-        seen["flash_attention"].append((tuple(q.shape), causal, window))
+        seen["flash_attention"].append((tuple(q.shape), causal, window,
+                                        k.shape[1]))
         return orig["attention"](q, k, v, causal=causal, window=window)
 
     def decode(q, k_cache, v_cache, lengths, *, window=None):
@@ -1753,12 +1864,16 @@ def phase_serve(phase, params, first=None):
         ops.reset_launch_counts()
         out = serve.run(cfg, **kw)
         launches = ops.launch_counts()
+        merges = ops.merge_launches()
     finally:
         restore()
         unrecord()
-    wave = cfg.family in ("moe", "hybrid")
+    wave = cfg.family in ("moe", "hybrid", "ssm")
     label = ("int8 " if quant else "") + ("wave" if wave else mode)
     check_launches(label, launches, widths, phase)
+    if not PATHS[phase] and (any(launches.values()) or merges):
+        raise AssertionError(f"the {label} path of {cfg.name} launched "
+                             f"port kernels: {launches}, {merges} merges")
     log(f"  calls by (kernel, H, Hkv, D): "
         f"{ {'/'.join(map(str, k)): n for k, n in heads.items()} }")
     seen["heads"] = heads
@@ -1775,9 +1890,11 @@ def phase_serve(phase, params, first=None):
         f"{ {k: len(v) for k, v in out['assigned'].items()} }, balances "
         f"{out['balances']}")
     # where the time goes: each decode step streams every weight once, so
-    # its floor is the weights' bytes over the memory rate
+    # its floor is the weights' bytes over the memory rate; an xLSTM step
+    # also reads and writes its recurrent state (max_batch 4 rows)
     wbytes = sum(t.numel() * t.element_size() for t in _leaves(params[0]))
-    floor_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    sbytes = 2 * 4 * ssm_state_bytes(cfg) if cfg.family == "ssm" else 0
+    floor_ms = (wbytes + sbytes) / HBM_BYTES_PER_S * 1e3
     steps = {}
     for nid, st in out["stats"].items():
         steps[nid] = dict(
@@ -1827,7 +1944,8 @@ def phase_serve(phase, params, first=None):
         extra["trace"] = traced_rerun(serve, cfg, kw)
     log(f"serve_profile_{phase} " + json.dumps(dict(
         mode=label, steps=steps, weights_gb=wbytes / 1e9,
-        step_floor_ms=floor_ms, tok_per_s=out["tok_per_s"],
+        state_gb=sbytes / 1e9, step_floor_ms=floor_ms,
+        tok_per_s=out["tok_per_s"],
         wall_s=out["wall_s"], launches=launches,
         launches_by_width={f"{k}@{d}": n for (k, d), n in widths.items()},
         launches_by_heads={"/".join(map(str, k)): n
@@ -1838,8 +1956,23 @@ def phase_serve(phase, params, first=None):
     return out, mine, seen
 
 
+def ssm_state_bytes(cfg) -> int:
+    """Bytes of one row's xLSTM decode state: each mLSTM block's C (H, dh,
+    dh), n (H, dh) and m (H) in float32 and its conv window (cw - 1, ud)
+    in the model's dtype; each sLSTM block's c, n, m, h (d) in float32."""
+    import torch
+    from repro_torch.models import xlstm
+    n_groups, tail = xlstm.group_structure(cfg)
+    kinds = list(xlstm.block_pattern(cfg)) * n_groups + list(tail)
+    ud, h = xlstm._ud(cfg), cfg.n_heads
+    dh = ud // h
+    elem = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    m = 4 * h * (dh * dh + dh + 1) + elem * (cfg.conv_width - 1) * ud
+    return kinds.count("m") * m + kinds.count("s") * 4 * 4 * cfg.d_model
+
+
 def phase_serve_arch(phase):
-    """[4h-4m] Seed the phase's weights (``PHASE_ARCH``: one set per node,
+    """[4h-4n] Seed the phase's weights (``PHASE_ARCH``: one set per node,
     or one shared; biases and norms perturbed), print its config and cut,
     serve it (``phase_serve``) and free the weights."""
     import torch
@@ -1863,21 +1996,125 @@ def phase_serve_arch(phase):
     return launches, seen
 
 
+def phase_whisper():
+    """[4o] whisper-base, full width, bf16, seeded and perturbed, through
+    the family interface (the driver's wave path passes no frames):
+    ``registry`` ``prefill`` on B=4 seeded 1500-frame embeddings and
+    32-token prompts, then 16 greedy ``decode_step``s.  Every row returns
+    tokens in the vocabulary; each prefill launches row 1 at D=64 18 times
+    (6 encoder, 6 decoder self, 6 cross layers) and each step row 4 at D=64
+    12 times (6 self rings, 6 cross caches), each cross call also merging
+    its splits; then the run again under the profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_split import decode_splits, target_blocks
+    from repro_torch.models import registry
+    from repro_torch.serving.sampling import masked_logits
+    cfg = get_config("whisper-base").replace(dtype="bfloat16")
+    fam = registry.get_family(cfg)
+    params = perturb(registry.init(cfg, torch.Generator("cuda").manual_seed(
+        20), "cuda"), 21)
+    b, steps = 4, WHISPER_STEPS
+    g = torch.Generator("cuda").manual_seed(30)
+    batch = {"encoder_embeds": torch.randn(
+        (b, WHISPER_FRAMES, cfg.d_model), generator=g, device="cuda").to(
+            torch.bfloat16),
+        "tokens": torch.randint(2, cfg.vocab_size, (b, WHISPER_PROMPT),
+                                generator=g, device="cuda")}
+    cap = WHISPER_PROMPT + steps
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fam.prefill(params, cfg, batch, capacity=cap)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = []
+        for _ in range(steps):
+            nt = torch.argmax(masked_logits(logits[:, -1], cfg.vocab_size),
+                              dim=-1)[:, None]
+            out.append(nt)
+            logits, cache = fam.decode_step(params, cfg, cache, nt)
+        out.append(torch.argmax(masked_logits(logits[:, -1],
+                                              cfg.vocab_size), dim=-1)[:, None])
+        toks = torch.cat(out, dim=1).cpu().numpy()
+        t2 = time.perf_counter()
+        return dict(results={f"w{i}": toks[i] for i in range(b)},
+                    wall_s=t2 - t0, prefill_s=t1 - t0, decode_s=t2 - t1)
+
+    seen = _seen()
+    widths, heads = collections.Counter(), collections.Counter()
+    restore = recording_ops(ops, seen, widths, heads)
+    try:
+        ops.reset_launch_counts()
+        out = run()
+        launches, merges = ops.launch_counts(), ops.merge_launches()
+    finally:
+        restore()
+    check_launches("whisper", launches, widths, "4o")
+    seen["heads"] = heads
+    split = decode_splits(b, cfg.n_kv_heads, WHISPER_FRAMES, target_blocks(
+        cfg.head_dim))
+    want = {("flash_attention", 64): cfg.n_encoder_layers + 2 * cfg.n_layers,
+            ("flash_decode", 64): 2 * cfg.n_layers * steps}
+    want_merges = cfg.n_layers * steps * (split > 1) + cfg.n_layers * steps \
+        * (decode_splits(b, cfg.n_kv_heads, cap, target_blocks(64)) > 1)
+    if dict(widths) != want or merges != want_merges or split < 2:
+        raise AssertionError(f"whisper launches {dict(widths)}, {merges} "
+                             f"merges; want {want}, {want_merges} merges "
+                             f"(cross decode splits {split})")
+    for rid, toks in out["results"].items():
+        if not (len(toks) == steps + 1 and (toks >= 0).all()
+                and (toks < cfg.vocab_size).all()):
+            raise AssertionError(f"{rid}: bad tokens {toks}")
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    tokens = b * (steps + 1)
+    log(f"  whisper-base bf16: {wbytes / 1e9:.2f} GB of weights; B={b} over "
+        f"{WHISPER_FRAMES} frames, {WHISPER_PROMPT}-token prompts: {tokens} "
+        f"tokens in {out['wall_s']:.3f}s ({tokens / out['wall_s']:.1f} "
+        f"tok/s), prefill {out['prefill_s'] * 1e3:.2f} ms, "
+        f"{steps} steps at {out['decode_s'] / steps * 1e3:.2f} ms; "
+        f"launches {dict(widths)}, {merges} merges (cross decode "
+        f"splits {split})")
+    profile = profile_rerun(run, out)
+    log("serve_profile_4o " + json.dumps(dict(
+        mode="family interface", weights_gb=wbytes / 1e9,
+        tok_per_s=tokens / out["wall_s"], wall_s=out["wall_s"],
+        prefill_ms=out["prefill_s"] * 1e3,
+        step_ms=out["decode_s"] / steps * 1e3, launches=launches,
+        merges=merges, cross_splits=split,
+        launches_by_width={f"{k}@{d}": n for (k, d), n in widths.items()},
+        launches_by_heads={"/".join(map(str, k)): n
+                           for k, n in heads.items()},
+        config=dict(arch=cfg.name, layers=[cfg.n_encoder_layers,
+                                           cfg.n_layers],
+                    heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim]),
+        **profile)))
+    mine = {e: widths[k, d] for e, (k, d, _) in ENTRIES.items()
+            if (k, d) in PATHS["4o"]}
+    del params
+    _free()
+    return mine, seen
+
+
 def phase_arch_shapes(seen) -> dict:
-    """[5, phases 4h-4m] Each kernel of a new serve phase's path against
+    """[5, phases 4h-4o] Each kernel of a new serve phase's path against
     its plain version at the shapes and head ratio that phase gave it
     (bfloat16): the most frequent prefill shape and the decode or verify
     step of median attended length."""
     out = {}
-    for phase in PHASE_ARCH:
+    for phase in [*PHASE_ARCH, "4o"]:
         heads = {(k, d): (h, hkv, d) for k, h, hkv, d in seen[phase]["heads"]}
         for kernel, d in sorted(PATHS[phase]):
             hd = heads[kernel, d]
             if kernel == "flash_attention":
-                (b, s, _, _), causal, window = _most_common_prefill(
+                (b, s, _, _), causal, window, skv = _most_common_prefill(
                     seen[phase][kernel], d)
                 r = prefill_case("main", b, s, "bfloat16", heads=hd,
-                                 causal=causal, window=window, iters=100)
+                                 causal=causal, window=window, skv=skv,
+                                 iters=100)
             elif kernel == "flash_decode":
                 _, s, ln = _median([st for st in seen[phase][kernel]
                                     if st[0] == d],
@@ -2025,16 +2262,27 @@ def profile_rerun(rerun, first, attempts: int = 4) -> dict:
     port kernels' times would be short.  On a mismatch the profiled rerun
     runs again, up to ``attempts`` in all; if none matches, the last one's
     times are kept and marked incomplete (``port_kernels_complete``), with
-    both counts in ``port_launch_check``."""
+    both counts in ``port_launch_check``.  ``EDGE_SPINS`` spinning
+    kernels on each side of the rerun take the records a session loses at
+    its edges (phase 4o launches its first port kernel within the first
+    milliseconds); they are left out of every sum."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
+    spins = spin_names()
     for attempt in range(1, attempts + 1):
         ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(EDGE_SPINS):
+                torch.cuda._sleep(EDGE_SPIN_CYCLES)
             again = rerun()
+            for _ in range(EDGE_SPINS):
+                torch.cuda._sleep(EDGE_SPIN_CYCLES)
+            torch.cuda.synchronize()
         host = dict(ops.launch_counts(), merge=ops.merge_launches())
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and e.name not in spins]
         by_name, count = {}, collections.Counter()
         for e in kern:
             by_name[e.name] = (by_name.get(e.name, 0.0)
@@ -2218,7 +2466,7 @@ def main() -> int:
     log("[2] kernels vs their plain versions" + at())
     phase_kernels()
     log("[2, new head ratios] rows 1-4 at rep 9, 12, 8, 6, 7, D=64 rep 2 "
-        "and D=256 rep 16" + at())
+        "and rep 1 (whisper-base), D=256 rep 16" + at())
     phase_ratios()
     log("[3] model consistency: paged, slot and verify logits vs fresh "
         "prefills" + at())
@@ -2229,6 +2477,9 @@ def main() -> int:
             + at())
         phase_arch_consistency(arch, n_layers, backends, cf, lens)
         _free()
+    log("[3, whisper-base] prefill and decode_step logits vs apply" + at())
+    phase_whisper_consistency()
+    _free()
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     cfg = get_config("qwen3-8b").replace(dtype="bfloat16")
@@ -2265,9 +2516,12 @@ def main() -> int:
                    "one set of weights"),
             ("4k", "granite-moe-1b-a400m on wave engines"),
             ("4l", "qwen2-vl-7b on paged engines (--paged)"),
-            ("4m", "recurrentgemma-9b on wave engines")):
+            ("4m", "recurrentgemma-9b on wave engines"),
+            ("4n", "xlstm-1.3b on wave engines (no port kernel)")):
         log(f"[{phase}] serve {title}" + at())
         launches[phase], seen[phase] = phase_serve_arch(phase)
+    log("[4o] whisper-base through the family interface" + at())
+    launches["4o"], seen["4o"] = phase_whisper()
     log("[5] kernels vs their plain versions at the serve phases' shapes"
         + at())
     main_cases = phase_main_shapes(seen)

@@ -1,9 +1,8 @@
-"""Architecture registry of the port.  The dense family (qwen3-8b,
-qwen3-32b, starcoder2-7b, command-r-plus-104b), the moe family
-(granite-moe-1b-a400m, dbrx-132b), the vlm family (qwen2-vl-7b) and the
-hybrid family (recurrentgemma-9b) are ported; the other architectures of
-``repro.configs`` raise ``KeyError`` naming the ROADMAP item that brings
-them."""
+"""Architecture registry of the port: every architecture of
+``repro.configs``, each family ported -- dense (qwen3-8b, qwen3-32b,
+starcoder2-7b, command-r-plus-104b), moe (granite-moe-1b-a400m,
+dbrx-132b), vlm (qwen2-vl-7b), hybrid (recurrentgemma-9b), ssm
+(xlstm-1.3b) and audio (whisper-base)."""
 
 from __future__ import annotations
 
@@ -16,18 +15,14 @@ from repro_torch.models.config import ModelConfig
 ARCHS: Dict[str, str] = {
     "starcoder2-7b": "starcoder2_7b",
     "qwen3-8b": "qwen3_8b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "dbrx-132b": "dbrx_132b",
     "qwen3-32b": "qwen3_32b",
-    "command-r-plus-104b": "command_r_plus_104b",
     "qwen2-vl-7b": "qwen2_vl_7b",
-    "recurrentgemma-9b": "recurrentgemma_9b",
-}
-
-# architectures of the reference still to port -> the ROADMAP item
-_PENDING: Dict[str, str] = {
-    "xlstm-1.3b": "Queue A item 7 (ssm, xLSTM)",
-    "whisper-base": "Queue A item 7 (audio encoder-decoder)",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "whisper-base": "whisper_base",
 }
 
 
@@ -56,11 +51,8 @@ def get_config(arch: str, shape: Optional[str] = None) -> ModelConfig:
     """The full-size config of ``arch`` (``.smoke()`` for the CPU size);
     ``long_500k`` on a full-attention arch returns its sliding-window
     variant, as the reference does."""
-    if arch in _PENDING:
-        raise KeyError(f"arch {arch!r} is not ported yet: ROADMAP "
-                       f"{_PENDING[arch]}; ported: {sorted(ARCHS)}")
     if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; ported: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
     cfg: ModelConfig = mod.CONFIG
     if shape == "long_500k" and cfg.family in ("dense", "moe", "vlm",

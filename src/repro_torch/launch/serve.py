@@ -19,12 +19,17 @@ decode engine, sharing the node's weights, joined by page-granular KV
 handoff.  ``--trace PATH`` records the protocol sim's and the replay's
 lifecycle spans into one stream, writes them to PATH as a Perfetto
 (Chrome ``trace_event``) JSON and prints the slowest requests' latency
-breakdown.  ``--arch`` takes every ported config: the dense family
-(qwen3-8b, the default, qwen3-32b, starcoder2-7b, command-r-plus-104b)
-and the vlm family (qwen2-vl-7b) on every backend above, and the moe
-family (granite-moe-1b-a400m, dbrx-132b) and the hybrid family
-(recurrentgemma-9b), whose engines serve left-padded waves and refuse the
-paged backends, as the reference's do.  On the card (the default)
+breakdown.  ``--arch`` takes every config of the reference: the dense
+family (qwen3-8b, the default, qwen3-32b, starcoder2-7b,
+command-r-plus-104b) and the vlm family (qwen2-vl-7b) on every backend
+above, and the moe family (granite-moe-1b-a400m, dbrx-132b), the hybrid
+family (recurrentgemma-9b) and the ssm family (xlstm-1.3b), whose engines
+serve left-padded waves and refuse the paged backends, as the reference's
+do.  whisper-base (audio) builds wave engines too, but its prefill needs
+``encoder_embeds`` that the wave path does not pass, so its first wave
+raises ``KeyError('encoder_embeds')``, as the reference driver does; the
+encoder-decoder is driven through ``models.registry`` instead.  On the
+card (the default)
 the nodes serve the full-width model in bfloat16, each with its own seeded
 random weights; on the CPU (``--device cpu``) they serve the reduced
 float32 config the reference driver runs, with the kernels' plain
@@ -36,6 +41,7 @@ versions::
     PYTHONPATH=src python -m repro_torch.launch.serve --disagg --trace t.json
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
 """
 
 from __future__ import annotations

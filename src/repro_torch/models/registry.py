@@ -1,13 +1,14 @@
 """Family registry of the port: the uniform interface the engine calls.
 
-Port of ``repro.models.registry`` for the dense and vlm families (one
-module: the full-sequence forward, slot decode, paged decode and the
-speculative paged verify), the moe family (the full-sequence forward with
-its aux loss, and the lock-step decode the engine's wave path runs) and
-the hybrid family (RG-LRU and local attention, also on waves).
+Port of ``repro.models.registry`` for every family of the reference: the
+dense and vlm families (one module: the full-sequence forward, slot
+decode, paged decode and the speculative paged verify), the moe family
+(the full-sequence forward with its aux loss, and the lock-step decode
+the engine's wave path runs), and the hybrid (RG-LRU and local
+attention), ssm (xLSTM) and audio (Whisper's encoder-decoder) families,
+each with the full-sequence forward and the lock-step decode only.
 ``apply_logits`` drops the aux loss, ``apply_with_aux`` keeps it (zero
-for a family without one).  The ssm and audio families are ROADMAP Queue
-A item 7.
+for a family without one).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models import dense, moe, rglru
+from repro_torch.models import dense, moe, rglru, whisper, xlstm
 from repro_torch.models.config import ModelConfig
 
 
@@ -53,14 +54,13 @@ FAMILIES: Dict[str, Family] = {
                   has_aux=True),
     "hybrid": Family(rglru.init, rglru.apply, rglru.prefill,
                      rglru.decode_step),
+    "ssm": Family(xlstm.init, xlstm.apply, xlstm.prefill, xlstm.decode_step),
+    "audio": Family(whisper.init, whisper.apply, whisper.prefill,
+                    whisper.decode_step),
 }
 
 
 def get_family(cfg: ModelConfig) -> Family:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue A "
-            f"item 7); ported: {sorted(FAMILIES)}")
     return FAMILIES[cfg.family]
 
 

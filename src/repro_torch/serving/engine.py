@@ -47,15 +47,17 @@ A paged engine is also either end of a disaggregated pair (DESIGN.md
 prefilled row as a ``KVHandoff`` (copies of its pages and its next-token
 logits) and ``accept_handoff`` lands one in this engine's own pool.
 
-Families without per-row cache depths (moe, hybrid) and sliding-window
-configs run the reference's **left-padded lock-step waves** instead
-(``_generate_wave``, entered from ``serve`` and ``step``): up to
+Families without per-row cache depths (moe, hybrid, ssm, audio) and
+sliding-window configs run the reference's **left-padded lock-step waves**
+instead (``_generate_wave``, entered from ``serve`` and ``step``): up to
 ``max_batch`` prompts left-padded with ``eos_id``, one prefill, then
-decode steps at one shared cache length until every row is done.  Such an
+decode steps at one shared cache length until every row is done (an
+xLSTM's pads run through its recurrence, as in the reference).  Such an
 engine refuses ``paged=True`` (and so the speculative, prefix-cache and
-disaggregated backends) with the reference's ``ValueError``.  The families
-the port does not have yet (ssm, audio) raise at ``registry.get_family``,
-naming ROADMAP Queue A item 7.
+disaggregated backends) with the reference's ``ValueError``.  The wave
+prefill passes the prompts' tokens alone, as the reference's does, so an
+audio engine constructs but its first wave raises
+``KeyError('encoder_embeds')`` where the reference's raises it.
 
 Wall times are measured by ``Tracer.wall`` blocks that end in a device
 synchronisation, because they feed ``EngineStats`` and so
@@ -180,8 +182,8 @@ def _sync(device: torch.device) -> None:
 
 class Engine:
     """Continuous batching over the PyTorch dense model (slot, paged or
-    speculative), or left-padded lock-step waves for the moe and hybrid
-    families and window configs (see the module docstring)."""
+    speculative), or left-padded lock-step waves for the moe, hybrid, ssm
+    and audio families and window configs (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  bucket: int = 64, seed: int = 0,
@@ -1340,8 +1342,9 @@ class Engine:
     def _generate_wave(self, reqs: List[GenRequest]) -> List[GenRequest]:
         """Left-padded lock-step decode, for families without per-row
         cache depths and for window configs: the prompts are left-padded
-        with ``eos_id`` to ``pad(max prompt)`` (the pads are attended and,
-        in an MoE layer, take expert capacity, as in the reference), the
+        with ``eos_id`` to ``pad(max prompt)`` (the pads are attended, in
+        an MoE layer take expert capacity and in an xLSTM run through the
+        recurrence, as in the reference), the
         cache holds ``plen + pad(max_new)`` positions, and every row decodes
         at one shared depth until each is done (EOS or budget).  A result
         ends at its first EOS, keeping at least one token."""

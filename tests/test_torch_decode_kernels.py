@@ -238,6 +238,8 @@ GPU_DECODE = [(b, s, h, hkv, dd, (clen,) * b, win)
     (4, 2048, 16, 1, 256, (2048,) * 4, None),      # a full ring
     (3, 300, 16, 1, 256, (300, 0, 17), 64),        # window, a dead row
     (2, 100, 16, 1, 256, (200, 3), 50),            # window past the cache
+    # whisper-base, D = 64, rep 1: the self-attention ring of the wave
+    (4, 48, 8, 8, 64, (40,) * 4, None),
 ]
 
 
@@ -276,6 +278,10 @@ GPU_DECODE_SPLIT = [
     (2, 2048, 16, 1, 256, (2048, 1500), None),
     (3, 2048, 16, 1, 256, (2048, 700, 0), None),    # ragged, a dead row
     (2, 4096, 16, 1, 256, (4096, 3000), 1500),
+    # whisper-base's cross attention, D = 64, rep 1: every row over the
+    # full 1500-frame cache (6 splits of 4 chunks at B = 4), and ragged
+    (4, 1500, 8, 8, 64, (1500,) * 4, None),
+    (2, 1500, 8, 8, 64, (1500, 700), None),
 ]
 
 

@@ -47,7 +47,7 @@ INT8_LOGIT_ATOL = 1e-3     # tests/test_torch_quant.py's LOGIT_ATOL
 MAX_CODE_STEPS = 4         # int8 values of the pools one code apart, at most
 ARCHS = ("starcoder2-7b", "qwen3-32b", "command-r-plus-104b")
 _SCALES = ("scale", "q_norm", "k_norm")
-_BIASES = ("bias", "bq", "bk", "bv", "bo", "b_up", "b_down")
+_BIASES = ("bias", "bq", "bk", "bv", "bo", "b_up", "b_down", "conv_b")
 
 
 def perturbed(tree, seed: int):

@@ -108,10 +108,9 @@ def test_executor_load_matches_reference_in_lockstep(setup):
 
 
 def test_unported_modes_name_their_roadmap_item(setup):
-    """What stays unported -- the ssm and audio families -- raises naming
-    its ROADMAP item; the vlm family constructs a slot engine; a window
-    config and the moe and hybrid families construct wave engines (no
-    slot decode); slot, speculative, int8 and
+    """Every family constructs an engine: the vlm family a slot engine; a
+    window config and the moe, hybrid, ssm and audio families wave engines
+    (no slot decode); slot, speculative, int8 and
     prefix-cache engines construct, ``prefix_pin`` without the cache
     returns 0, and the KV handoff refuses the backends the reference
     refuses (slot, speculative, int8 pages) while an idle fp paged engine
@@ -120,12 +119,10 @@ def test_unported_modes_name_their_roadmap_item(setup):
     Engine(cfg_t, pt, paged=True, prefix_cache=True)
     for paged in (False, True):
         Engine(cfg_t.replace(kv_quant=True), pt, paged=paged)
-    for family in ("ssm", "audio"):
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            Engine(cfg_t.replace(family=family), pt)
     assert Engine(cfg_t.replace(family="vlm"), pt).slot_decode
     for cfg in (cfg_t.replace(sliding_window=64), cfg_t.replace(family="moe"),
-                cfg_t.replace(family="hybrid")):
+                cfg_t.replace(family="hybrid"), cfg_t.replace(family="ssm"),
+                cfg_t.replace(family="audio")):
         assert not Engine(cfg, pt).slot_decode
     for eng in (Engine(cfg_t, pt), Engine(cfg_t, pt, paged=True),
                 Engine(cfg_t, pt, paged=True, spec_draft=(cfg_t, pt)),

@@ -124,12 +124,14 @@ def test_copied_constants_equal_the_reference():
 @pytest.mark.parametrize("arch", ["qwen3-8b", "qwen3-32b", "starcoder2-7b",
                                   "command-r-plus-104b",
                                   "granite-moe-1b-a400m", "dbrx-132b",
-                                  "qwen2-vl-7b", "recurrentgemma-9b"])
+                                  "qwen2-vl-7b", "recurrentgemma-9b",
+                                  "xlstm-1.3b", "whisper-base"])
 def test_config_copies_equal_the_reference(arch):
-    """Each ported config, its smoke size, its draft and its ``long_500k``
-    window variant equal ``repro.configs``' field by field; the copied
-    input-shape grid and default window too, and the families not ported
-    yet raise naming their ROADMAP item."""
+    """Each config, its smoke size, its draft and its ``long_500k`` window
+    variant equal ``repro.configs``' field by field; the port has every
+    arch of the reference, and the copied input-shape grid and default
+    window equal the reference's; an unknown arch raises ``KeyError`` in
+    both."""
     import dataclasses
     import repro.configs as jconfigs
     import repro_torch.configs as tconfigs
@@ -139,15 +141,15 @@ def test_config_copies_equal_the_reference(arch):
         for c_t, c_j in ((got, want), (got.smoke(), want.smoke()),
                          (got.draft(), want.draft())):
             assert dataclasses.asdict(c_t) == dataclasses.asdict(c_j)
-    assert set(tconfigs.ARCHS) | set(tconfigs._PENDING) == set(jconfigs.ARCHS)
+    assert tconfigs.ARCHS == jconfigs.ARCHS
     assert {k: dataclasses.asdict(v)
             for k, v in tconfigs._INPUT_SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in jconfigs.INPUT_SHAPES.items()}
     assert (tconfigs._DEFAULT_LONG_CONTEXT_WINDOW
             == jconfigs.DEFAULT_LONG_CONTEXT_WINDOW)
-    for pending in tconfigs._PENDING:
-        with pytest.raises(KeyError, match="Queue A item 7"):
-            tconfigs.get_config(pending)
+    for pkg in (tconfigs, jconfigs):
+        with pytest.raises(KeyError, match="unknown arch"):
+            pkg.get_config(arch + "-x")
 
 
 @pytest.mark.parametrize("name", ["TokenBucketExecutor",

@@ -198,6 +198,14 @@ GPU_PREFILL = [(b, s, h, hkv, 128, win, causal, None)
     (2, 77, 16, 1, 256, None, False, None),
     (2, 129, 16, 2, 256, 33, True, 200),       # rep 8, sq < skv
     (1, 300, 16, 1, 256, None, True, 130),     # sq > skv
+    # whisper-base: D = 64, rep 1 (8/8): its encoder (bidirectional over
+    # 1500 frames), its decoder's causal prompt and its cross attention
+    # (a 32-token prompt, no mask, over the 1500 encoder positions)
+    (4, 1500, 8, 8, 64, None, False, None),
+    (4, 32, 8, 8, 64, None, True, None),
+    (4, 32, 8, 8, 64, None, False, 1500),       # non-causal, sq < skv
+    (2, 77, 32, 8, 128, None, False, 300),      # the same at rep 4, D=128
+    (1, 200, 8, 8, 64, None, False, 130),       # non-causal, sq > skv
 ]
 
 

@@ -5,10 +5,11 @@ replay (``tests/test_torch_serve.py``'s ``_reference_run``), both on the
 same perturbed, bridged weights (``tests/test_torch_dense_variants.py``'s
 ``perturbed``: every norm scale, norm bias and bias moved off its start):
 starcoder2-7b on slot engines (the driver's default), command-r-plus-104b
-on paged engines (``--paged``) and granite-moe-1b-a400m, whose engines
-serve left-padded waves.  The protocol's assignment, the credit balances,
-the SLO attainment and every request's greedy tokens must be the
-reference's.
+on paged engines (``--paged``), and granite-moe-1b-a400m and xlstm-1.3b,
+whose engines serve left-padded waves.  The protocol's assignment, the
+credit balances, the SLO attainment and every request's greedy tokens
+must be the reference's.  whisper-base's wave engines pass the prefill
+tokens alone, so both drivers raise the same ``KeyError``.
 """
 
 import jax
@@ -27,7 +28,8 @@ from test_torch_dense_variants import perturbed
 
 CASES = {"starcoder2-7b-slot": ("starcoder2-7b", "slot"),
          "command-r-plus-104b-paged": ("command-r-plus-104b", "paged"),
-         "granite-moe-1b-a400m-wave": ("granite-moe-1b-a400m", "slot")}
+         "granite-moe-1b-a400m-wave": ("granite-moe-1b-a400m", "slot"),
+         "xlstm-1.3b-wave": ("xlstm-1.3b", "slot")}
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -68,12 +70,29 @@ def test_same_assignment_balances_and_tokens(runs):
 
 def test_same_engine_stats(runs):
     """The engines did the same work: prefill batches and tokens, decode
-    steps and tokens; a moe node served waves (no resident slots)."""
+    steps and tokens; a moe or ssm node served waves (no resident
+    slots)."""
     cfg, ref, port = runs
     for nid, st in ref["stats"].items():
         got = port["stats"][nid]
         for f in ("served", "batches", "prefill_tokens", "decode_steps",
                   "decode_tokens", "peak_resident"):
             assert getattr(got, f) == getattr(st, f), (nid, f)
-        if cfg.is_moe:
+        if cfg.family in ("moe", "ssm"):
             assert got.peak_resident == 0 and got.batches >= 1
+
+
+def test_whisper_driver_raises_as_the_reference_does():
+    """whisper-base on the driver: each node builds a wave engine, and the
+    first wave's prefill, given tokens alone, raises ``KeyError(
+    'encoder_embeds')`` in both packages."""
+    torch.set_num_threads(2)
+    cfg_j = jax_get_config("whisper-base").smoke().replace(dtype="float32")
+    cfg_t = get_config("whisper-base").smoke().replace(dtype="float32")
+    with pytest.raises(KeyError) as ej:
+        ts._reference_run(cfg_j, "slot", False)
+    with pytest.raises(KeyError) as et:
+        serve.run(cfg_t, nodes=ts.NODES, requests=ts.REQUESTS,
+                  max_new=ts.MAX_NEW, seed=ts.SEED, device="cpu",
+                  mode="slot", verbose=False)
+    assert et.value.args == ej.value.args == ("encoder_embeds",)
