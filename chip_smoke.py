@@ -136,6 +136,39 @@ Phases, each of which raises (exit code != 0) when it fails:
    launches the profiler saw held to the host's counts of the same rerun:
    on a shortfall the rerun runs again, up to 3 more times, and then the
    phase's port-kernel times are marked incomplete with both counts;
+6. gradients through row 1 (C3): one ``training.loss_fn`` backward at
+   smoke widths in float32 (TF32 off) for qwen3-8b, granite-moe-1b-a400m
+   and recurrentgemma-9b, norm scales and biases perturbed, through the
+   kernels (row 1 under ``FlashAttentionFn``: the kernel forward, a
+   plain-recompute backward) and again with ``ops.attention`` patched to
+   ``flash_ref``: every leaf's gradient within 1e-3 of that leaf's
+   max|g|, ``wq``, ``wk``, ``wv`` (and ``q_norm``, ``k_norm``) nonzero,
+   row 1 launched as often as by a forward without grad; a decode and a
+   paged decode row on an input that requires grad must raise;
+7. the training path, through ``repro_torch.launch.train.train``:
+   qwen3-8b at its published widths in bfloat16, cut to 16 of its 36
+   layers (the most that leave 8 GB of the card free at the peak of
+   allocated memory), 5 AdamW steps of 4 x 512 pipeline tokens.  Row 1
+   must launch 16 times a step and no other kernel; loss, grad norm and
+   lr finite at every step; the first loss within 2e-2 of the same loss
+   with ``ops.attention`` patched to ``flash_ref``.  It prints tokens/s,
+   the median step, the model-FLOP share of 989 TFLOP/s, the peak memory,
+   a sixth step under the profiler (busy share, top kernels), and what
+   AdamW allocates to update the largest leaf (embed) in one pass; then
+   row 1 at that shape: the kernel forward, the plain version, the plain
+   recompute backward and, as a yardstick the port never calls,
+   ``scaled_dot_product_attention`` forward, and forward plus backward,
+   whose gradients the plain backward's must match within 2e-2 of their
+   max;
+   [7b] ``examples/train_small_torch.py``'s ``run`` (smoke qwen3-8b,
+   float32, 200 steps): the loss drops by at least 0.5, a checkpoint
+   written on the card restores equal, row 1 launched 400 times;
+8. the section 5 core on the card: ``gametheory.integrate`` in float32
+   within 1e-5 of the largest stake of the CPU run over 2000 RK4 steps,
+   ``verify_proposition_56`` under 1e-2, and ``creditsim.simulate`` with
+   a CUDA generator agreeing with the ODE (the top two of four nodes
+   hold more than 0.75 of the stake, the best node's duel win rate above
+   the worst's);
 5. each kernel against its plain version again, at the shapes its serve
    phase gave it: the most frequent prefill shape, and the decode or verify
    step of median attended length with that step's own table and lengths;
@@ -159,7 +192,9 @@ card could take (``bound_ms``: the larger of the bytes it must move over
 type), with ``vs_library`` and ``bound_share``, its launches in phases
 4f and 4g (``launches_4f``, ``launches_4g``), and, for each of phases
 4h-4o whose path runs it, its launches and times there
-(``arch_phases``); the D=256 entries are read in phase 4m.  The last line is ``{"ok":
+(``arch_phases``); the D=256 entries are read in phase 4m.  The
+prefill entry at D=128 adds ``train``: its launches in phase 7 and its
+times there; the one at D=64 ``train_launches`` in phases 6 and 7b.  The last line is ``{"ok":
 true, "device": ...}``.  Without a CUDA card, or outside a checkout of the
 repository, the script exits with an error before printing any result.
 """
@@ -2438,6 +2473,476 @@ def phase_prefix(params):
     return launches, seen
 
 
+# ------------------------------------------------------- phases 6, 7, 7b, 8
+# [6]: dense, moe and hybrid smoke configs, fp32, one backward each
+GRAD_ARCHS = (("qwen3-8b", 40), ("granite-moe-1b-a400m", 42),
+              ("recurrentgemma-9b", 44))
+GRAD_REL = 1e-3            # of each leaf's largest |gradient|
+# [7]: qwen3-8b at its published widths, bf16, cut in depth to the most
+# layers (between 12 and 16) that leave MIN_FREE_BYTES of the card free
+# at torch.cuda.max_memory_allocated: 12 B a parameter (bf16 param and
+# gradient, fp32 mu and nu) puts 16 layers at 52.0 GB before activations
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 4, 512, 5
+TRAIN_LR = 1e-4            # the launcher's 1e-3 overshoots at 4096 wide
+MIN_FREE_BYTES = 8e9
+TRAIN_LOSS_REL = 2e-2      # first loss, kernel vs plain prefill (bf16)
+ADAMW_BYTES_PER_PARAM = 22  # read param, grad, mu, nu; write param, mu, nu
+# [8]: the stake ODE on the card against the CPU
+STAKE_REL = 1e-5
+
+
+def _grads(cfg, params, batch):
+    """{leaf path: gradient} of ``training.loss_fn`` at ``params``."""
+    from repro_torch.training import loss_and_grads
+    from repro_torch.training.tree import leaves
+
+    def names(tree, prefix=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from names(tree[k], f"{prefix}{k}.")
+            else:
+                yield prefix + k
+
+    return dict(zip(names(params), leaves(loss_and_grads(params, cfg,
+                                                         batch)[2])))
+
+
+def grads_through_row1(arch: str, seed: int) -> dict:
+    """C3 on the card for one config: one ``loss_fn`` backward through its
+    ``apply`` at smoke widths in fp32 (TF32 off), norm scales and biases
+    perturbed, first through the kernels (row 1 under
+    ``FlashAttentionFn``), then with ``ops.attention`` patched to the
+    plain ``flash_ref``: every leaf's gradient within ``GRAD_REL`` of that
+    leaf's largest |gradient| on the plain path, ``wq``, ``wk``, ``wv``
+    (and ``q_norm``, ``k_norm`` where the config has them) nonzero, row 1
+    launched as often as by a forward without grad.  Raises on a miss;
+    ``tests/test_torch_autograd.py`` runs it too."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_ref
+    from repro_torch.launch.train import model_batch
+    from repro_torch.models import registry
+    from repro_torch.training import loss_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).smoke().replace(dtype="float32")
+    params = perturb(registry.init(
+        cfg, torch.Generator("cuda").manual_seed(seed), "cuda"), seed + 1)
+    batch = model_batch(cfg, TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, global_batch=2,
+        seed=seed)).batch(0), torch.device("cuda"))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        loss_fn(params, cfg, batch)
+    forward = ops.launch_counts()["flash_attention"]
+    ops.reset_launch_counts()
+    got = _grads(cfg, params, batch)
+    launches = ops.launch_counts()
+    if launches["flash_attention"] != forward or forward < 1:
+        raise AssertionError(f"{arch}: row 1 launched {launches} under "
+                             f"grad, {forward} times without")
+    orig = ops.attention
+    ops.attention = flash_ref
+    try:
+        want = _grads(cfg, params, batch)
+    finally:
+        ops.attention = orig
+    worst = 0.0
+    for name, g in got.items():
+        w = want[name]
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        if not (torch.isfinite(g).all()
+                and err <= GRAD_REL * max(scale, 1e-30)):
+            raise AssertionError(f"{arch} {name}: gradient error {err} "
+                                 f"against the plain path's max {scale}")
+        worst = max(worst, err / max(scale, 1e-30))
+    keys = ("wq", "wk", "wv") + (("q_norm", "k_norm") if cfg.qk_norm
+                                 else ())
+    for key in keys:
+        hit = [n for n in got if n.split(".")[-1] == key]
+        if not hit or not all(float(got[n].abs().max()) > 0 for n in hit):
+            raise AssertionError(f"{arch}: no gradient on {key}: {hit}")
+    log(f"  {arch}: {len(got)} leaves, gradients through row 1 ("
+        f"{forward} launches) within {worst:.2e} of each leaf's max "
+        f"|g| on the plain path; {', '.join(keys)} nonzero")
+    return dict(leaves=len(got), row1_launches=forward, worst_rel_err=worst)
+
+
+def decode_rows_raise() -> None:
+    """A decode and a paged decode row with a query that requires grad
+    must raise (``ops.forbid_grad``); the decode row runs under
+    ``no_grad``."""
+    import torch
+    from repro_torch.kernels import ops
+    q = torch.randn(2, 1, 8, 64, device="cuda", requires_grad=True)
+    kc = torch.randn(2, 16, 2, 64, device="cuda")
+    lengths = torch.full((2,), 16, dtype=torch.int32, device="cuda")
+    table = torch.arange(1, 3, dtype=torch.int32, device="cuda")[None] \
+        .repeat(2, 1)
+    pool = torch.randn(3, 8, 2, 64, device="cuda")
+    for name, call in (
+            ("decode", lambda: ops.decode(q, kc, kc.clone(), lengths)),
+            ("paged_decode", lambda: ops.paged_decode(
+                q, pool, pool.clone(), table, lengths))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} on an input that requires grad "
+                                 f"did not raise")
+    with torch.no_grad():
+        ops.decode(q, kc, kc.clone(), lengths)
+    log("  decode and paged decode rows raise on inputs that require grad")
+
+
+def phase_grads() -> dict:
+    """[6] ``grads_through_row1`` for a dense, a moe and a hybrid config
+    (``GRAD_ARCHS``), then ``decode_rows_raise``."""
+    out = {arch: grads_through_row1(arch, seed) for arch, seed in GRAD_ARCHS}
+    decode_rows_raise()
+    log("grads " + json.dumps(out))
+    _free()
+    return out
+
+
+def train_attention_case(iters: int = 20) -> dict:
+    """Row 1 at phase 7's shape (bf16, B=4 S=512, qwen3-8b's 32/8 heads,
+    D=128, causal): the kernel forward against ``flash_ref``; the plain
+    recompute backward of ``FlashAttentionFn`` (``flash_ref`` under
+    autograd); and, as a yardstick the port never calls, one
+    ``scaled_dot_product_attention`` forward, and one forward plus
+    backward, on the same inputs.  Bounds: the forward 4 x B x H x D
+    operations a visible (q, k) pair, the backward 10 (five products: S,
+    dV, dP, dQ, dK), over the bf16 peak; the forward's bytes q, k, v and
+    out once each, the backward's q, k, v, dout, dq, dk and dv (it saves
+    no out: it recomputes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_ref
+    b, s, (h, hkv, d) = TRAIN_BATCH, TRAIN_SEQ, TARGET
+    g = torch.Generator("cuda").manual_seed(50)
+    q, k, v, dout = (torch.randn(shape, generator=g, device="cuda")
+                     .to(torch.bfloat16) for shape in (
+                         (b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
+                         (b, s, h, d)))
+    got = flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = check("train-shape prefill", got, flash_ref(q, k, v, causal=True),
+                "bfloat16")
+    ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    tins = [x.detach().transpose(1, 2).contiguous().requires_grad_(True)
+            for x in (q, k, v)]
+    tout = dout.transpose(1, 2).contiguous()
+
+    def plain_backward():
+        return torch.autograd.grad(flash_ref(*ins, causal=True), ins, dout)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(*tins, is_causal=True,
+                                                  enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*tins, is_causal=True,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, tins, tout)
+
+    # the plain backward's gradients against SDPA's, within the bf16
+    # tolerance of each gradient's largest |value|
+    grad_err = 0.0
+    for name, mine, lib in zip("qkv", plain_backward(), sdpa_fwd_bwd()):
+        lib = lib.transpose(1, 2).float()
+        e = float((mine.float() - lib).abs().max() / lib.abs().max())
+        if not (torch.isfinite(mine.float()).all() and e <= TOL["bfloat16"]):
+            raise AssertionError(f"d{name} of the plain backward against "
+                                 f"SDPA's: {e:.3g} of its max")
+        grad_err = max(grad_err, e)
+    t = {}
+    timed_by = {}
+    for key, fn, n in (
+            ("ms", lambda: flash_attention_cuda(q, k, v, causal=True),
+             iters),
+            ("plain_ms", lambda: flash_ref(q, k, v, causal=True), iters),
+            ("library_ms", sdpa_fwd, iters),
+            ("backward_plain_ms", plain_backward, iters),
+            ("library_fwd_bwd_ms", sdpa_fwd_bwd, iters)):
+        t[key], timed_by[key] = device_ms(fn, n)
+    vis = s * (s + 1) // 2
+    elem = q.element_size()
+    fwd = bound((2 * q.numel() + k.numel() + v.numel()) * elem,
+                4.0 * b * h * d * vis, "bfloat16")
+    bwd = bound((3 * q.numel() + 2 * (k.numel() + v.numel())) * elem,
+                10.0 * b * h * d * vis, "bfloat16")
+    return dict(shape=f"B={b} S={s} H={h} Hkv={hkv} D={d} causal",
+                dtype="bfloat16", max_abs_err=err,
+                backward_rel_err_vs_library=grad_err, **t, timed_by=timed_by,
+                bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
+                backward_bound_ms=bwd["bound_ms"],
+                backward_bound_by=bwd["bound_by"],
+                bound_share=fwd["bound_ms"] / t["ms"],
+                vs_library=t["ms"] / t["library_ms"])
+
+
+def phase_train() -> dict:
+    """[7] The slice's main path: ``launch.train.train`` on qwen3-8b at its
+    published widths in bf16, cut to ``TRAIN_LAYERS`` layers, for
+    ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens.  Row 1
+    must launch ``n_layers`` times a step (the forward; the backward
+    recomputes through the plain version) and nothing else of the port;
+    loss, grad norm and lr finite at every step; at least
+    ``MIN_FREE_BYTES`` of the card free at the peak of allocated memory;
+    the first step's loss within ``TRAIN_LOSS_REL`` of the same loss with
+    ``ops.attention`` patched to ``flash_ref``.  Then one more step under
+    the profiler for the device's busy share and where its time goes, what
+    AdamW allocates to update the largest leaf in one pass, and row 1 at
+    this shape (``train_attention_case``)."""
+    import math
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_ref
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.training import (AdamWConfig, adamw_update, loss_fn,
+                                      make_train_step)
+    from repro_torch.training.tree import leaves
+    cfg = get_config("qwen3-8b").replace(n_layers=TRAIN_LAYERS,
+                                         dtype="bfloat16")
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, lr=TRAIN_LR, seed=0, device=dev)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.n_layers * TRAIN_STEPS
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, want {want}")
+    hist = out["history"]
+    for i, m in enumerate(hist):
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm", "lr")):
+            raise AssertionError(f"step {i}: {m}")
+    if total - peak < MIN_FREE_BYTES:
+        raise AssertionError(f"{cfg.n_layers} layers peak at "
+                             f"{peak / 1e9:.1f} of {total / 1e9:.1f} GB")
+    params = out["state"]["params"]
+    n_params = sum(x.numel() for x in leaves(params))
+    matmul = sum(v.numel() for k, v in params["layers"].items()
+                 if k.startswith("w")) + params["lm_head"].numel()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = sorted(m["step_s"] for m in hist[1:])
+    step_s = steady[len(steady) // 2]
+    flops = 6.0 * matmul * tokens
+    # one more step under the profiler: the device's busy share
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, total_steps=10))
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    batch = train.model_batch(cfg, pipe.batch(TRAIN_STEPS), dev)
+    spins = spin_names()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(EDGE_SPINS):
+            torch.cuda._sleep(EDGE_SPIN_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(out["state"], batch)
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(EDGE_SPINS):
+            torch.cuda._sleep(EDGE_SPIN_CYCLES)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name not in spins]
+    by_name = collections.Counter()
+    for e in kern:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    # what one AdamW update of the largest leaf (embed) allocates above
+    # the train state: its float32 temporaries, the whole leaf at once
+    opt = state["opt"]
+    embed = state["params"]["embed"]
+    zero = torch.zeros_like(embed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    adamw_update(AdamWConfig(), {"embed": embed}, {"embed": zero},
+                 {"mu": {"embed": opt["mu"]["embed"]},
+                  "nu": {"embed": opt["nu"]["embed"]}, "step": opt["step"]})
+    torch.cuda.synchronize()
+    leaf_update_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del out, state, params, m, opt, embed, zero
+    _free()
+    # the first step's loss again, attention on the plain version
+    params = registry.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+    orig = ops.attention
+    ops.attention = flash_ref
+    try:
+        with torch.no_grad():
+            plain_loss, _ = loss_fn(params, cfg, train.model_batch(
+                cfg, pipe.batch(0), dev))
+    finally:
+        ops.attention = orig
+    plain_loss = float(plain_loss)
+    rel = abs(hist[0]["loss"] - plain_loss) / abs(plain_loss)
+    if not rel <= TRAIN_LOSS_REL:
+        raise AssertionError(f"first loss {hist[0]['loss']} against "
+                             f"{plain_loss} on the plain path: {rel:.3g}")
+    del params
+    _free()
+    attn = train_attention_case()
+    r = dict(
+        arch=cfg.name, layers=cfg.n_layers, depth_cut_of=36,
+        widths=dict(d=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.head_dim],
+                    d_ff=cfg.d_ff, vocab=cfg.vocab_size),
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        params=n_params, matmul_params=matmul,
+        losses=[m["loss"] for m in hist],
+        grad_norms=[m["grad_norm"] for m in hist],
+        lrs=[m["lr"] for m in hist], step_s=[m["step_s"] for m in hist],
+        first_loss_plain=plain_loss, first_loss_rel=rel,
+        launches=launches, peak_gb=peak / 1e9, total_gb=total / 1e9,
+        free_gb=(total - peak) / 1e9, median_step_ms=step_s * 1e3,
+        embed_update_gb=leaf_update_gb,
+        tokens_per_s=tokens / step_s,
+        model_flops_share=flops / step_s / PEAK_FLOPS["bfloat16"],
+        matmul_floor_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3,
+        adamw_floor_ms=ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S
+        * 1e3,
+        profiled_step=dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                           idle_share=1 - busy_ms / wall_ms,
+                           kernel_launches=len(kern),
+                           top_kernels_ms={n[:90]: t for n, t in
+                                           by_name.most_common(10)}),
+        attention=attn)
+    log(f"  {cfg.name} ({cfg.n_layers} of 36 layers, {n_params / 1e9:.2f} B "
+        f"params, bf16): losses {[round(x, 4) for x in r['losses']]}, "
+        f"first vs plain attention {rel:.2e}; peak {r['peak_gb']:.1f} of "
+        f"{r['total_gb']:.1f} GB ({r['free_gb']:.1f} free; embed's "
+        f"AdamW update allocates {leaf_update_gb:.2f} GB at once); step "
+        f"{r['median_step_ms']:.1f} ms, {r['tokens_per_s']:.0f} tok/s, "
+        f"model FLOP share {r['model_flops_share']:.1%} (floors: matmuls "
+        f"{r['matmul_floor_ms']:.1f} ms, AdamW {r['adamw_floor_ms']:.1f} "
+        f"ms); profiled step busy {busy_ms:.1f} of {wall_ms:.1f} ms "
+        f"(idle {r['profiled_step']['idle_share']:.1%}), {len(kern)} "
+        f"kernels; row 1 {launches['flash_attention']} launches")
+    for name, ms in by_name.most_common(10):
+        log(f"    {ms:9.2f} ms  {name[:90]}")
+    log(f"  row 1 at {attn['shape']}: forward {attn['ms']:.4f} ms (bound "
+        f"{attn['bound_ms']:.4f}), plain forward {attn['plain_ms']:.4f}, "
+        f"plain backward {attn['backward_plain_ms']:.4f} (bound "
+        f"{attn['backward_bound_ms']:.4f}), SDPA forward "
+        f"{attn['library_ms']:.4f} (vs_library {attn['vs_library']:.2f}), "
+        f"forward + backward {attn['library_fwd_bwd_ms']:.4f} ms")
+    log("train " + json.dumps(r))
+    return r
+
+
+def phase_train_small() -> dict:
+    """[7b] ``examples/train_small_torch.py``'s loop on the card (smoke
+    qwen3-8b, fp32, 200 steps): the loss drops by at least 0.5, a
+    checkpoint written on the card restores equal, and row 1 launched
+    once a layer and step."""
+    import runpy
+    from repro_torch.kernels import ops
+    example = runpy.run_path(str(ROOT / "examples" / "train_small_torch.py"),
+                             run_name="train_small_torch")
+    ops.reset_launch_counts()
+    out = example["run"](steps=200, device="cuda")
+    launches = ops.launch_counts()
+    if not out["last"] < out["first"] - 0.5:
+        raise AssertionError(f"loss {out['first']} -> {out['last']}")
+    if not (out["restored_equal"] and out["step"] == 200):
+        raise AssertionError(f"checkpoint restore: {out}")
+    if launches["flash_attention"] != 2 * 200 or sum(launches.values()) \
+            != launches["flash_attention"]:
+        raise AssertionError(f"train_small launches {launches}")
+    log("train_small " + json.dumps(dict(out, launches=launches)))
+    _free()
+    return dict(out, launches=launches)
+
+
+def phase_gametheory() -> dict:
+    """[8] The section 5 modules on the card: ``integrate`` in fp32 against
+    the CPU run within ``STAKE_REL`` of the largest stake over 2000 RK4
+    steps; ``verify_proposition_56`` under the reference test's 1e-2;
+    ``simulate`` with a CUDA generator agreeing with the ODE as
+    ``tests/test_gametheory.py`` ``test_montecarlo_agrees_with_ode``
+    asks."""
+    import numpy as np
+    import torch
+    from repro_torch.core.creditsim import CreditSimParams, simulate
+    from repro_torch.core.gametheory import (GameParams, integrate,
+                                             verify_proposition_56)
+
+    def params(q, dev, p_d=0.5):
+        q = torch.tensor(q, device=dev)
+        return GameParams(q=q, c=torch.full(q.shape, 0.3, device=dev),
+                          p_d=p_d, R_add=1.0, P=1.0)
+
+    q = [0.9, 0.7, 0.4, 0.2, 0.05]
+    s0 = torch.tensor([1.0, 2.0, 0.5, 1.5, 3.0])
+    t0 = time.perf_counter()
+    traj, _ = integrate(params(q, "cuda"), s0.to("cuda"), dt=0.05,
+                        steps=2000)
+    torch.cuda.synchronize()
+    ode_s = time.perf_counter() - t0
+    ref, _ = integrate(params(q, "cpu"), s0, dt=0.05, steps=2000)
+    err = float((traj.cpu() - ref).abs().max())
+    if not (traj.device.type == "cuda"
+            and err <= STAKE_REL * float(ref.max())):
+        raise AssertionError(f"integrate on the card: {err} of "
+                             f"{float(ref.max())}")
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    for n in (2, 4, 8):
+        qs = rng.uniform(0.05, 0.95, n).tolist()
+        e = verify_proposition_56(params(qs, "cuda", 0.3),
+                                  torch.full((n,), float(rng.uniform(0.5, 5)),
+                                             device="cuda"))
+        worst = max(worst, e)
+    if not worst < 1e-2:
+        raise AssertionError(f"proposition 5.6 on the card: {worst}")
+    cp = CreditSimParams(q=torch.tensor([0.85, 0.75, 0.25, 0.15],
+                                        device="cuda"),
+                         c=torch.full((4,), 0.3, device="cuda"), p_d=0.5,
+                         R_add=1.0, P=1.0)
+    t0 = time.perf_counter()
+    tr, wins, duels = simulate(cp, torch.full((4,), 10.0, device="cuda"),
+                               torch.Generator("cuda").manual_seed(0),
+                               steps=1200)
+    sh = (tr[-1] / tr[-1].sum()).cpu().numpy()
+    sim_s = time.perf_counter() - t0
+    wr = wins.cpu().numpy() / np.maximum(duels.cpu().numpy(), 1)
+    if not (tr.device.type == "cuda" and sh[:2].sum() > 0.75
+            and wr[0] > wr[3]):
+        raise AssertionError(f"creditsim on the card: shares {sh}, win "
+                             f"rates {wr}")
+    r = dict(integrate_err=err, integrate_max_stake=float(ref.max()),
+             integrate_s=ode_s, prop56_err=worst,
+             sim_shares=sh.tolist(), sim_win_rates=wr.tolist(),
+             simulate_s=sim_s)
+    log("  integrate on the card within "
+        f"{err / float(ref.max()):.2e} of the largest stake ({ode_s:.2f} s "
+        f"for 2000 steps); proposition 5.6 error {worst:.2e}; simulate "
+        f"top-two share {sh[:2].sum():.3f}, win rates {np.round(wr, 3)} "
+        f"({sim_s:.2f} s for 1200 steps)")
+    log("gametheory " + json.dumps(r))
+    return r
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2522,6 +3027,15 @@ def main() -> int:
         launches[phase], seen[phase] = phase_serve_arch(phase)
     log("[4o] whisper-base through the family interface" + at())
     launches["4o"], seen["4o"] = phase_whisper()
+    log("[6] gradients through row 1 vs the plain path (C3)" + at())
+    grads = phase_grads()
+    log("[7] training qwen3-8b at full width, cut in depth (launch.train)"
+        + at())
+    trained = phase_train()
+    log("[7b] examples/train_small_torch.py on the card" + at())
+    small = phase_train_small()
+    log("[8] game theory on the card (gametheory, creditsim)" + at())
+    phase_gametheory()
     log("[5] kernels vs their plain versions at the serve phases' shapes"
         + at())
     main_cases = phase_main_shapes(seen)
@@ -2544,6 +3058,15 @@ def main() -> int:
             vs_library=r["vs_library"], bound_share=r["bound_share"],
             call_ms=r["call_ms"], timed_by=r["timed_by"], shape=r["shape"],
             dtype=r["dtype"],
+            # the training paths that run it (phases 6, 7 and 7b), each
+            # with its launches there; phase 7's times at its shape
+            **({"train": dict(
+                launches=trained["launches"]["flash_attention"],
+                **trained["attention"])} if entry == "flash_attention"
+               else {"train_launches": dict(
+                   grads=sum(a["row1_launches"] for a in grads.values()),
+                   train_small=small["launches"]["flash_attention"])}
+               if entry == "flash_attention_d64" else {}),
             # the new configs' serve phases that run it, each with its
             # launches there and its times at that phase's shapes
             arch_phases={

@@ -1,7 +1,8 @@
 """repro_torch.core — the port's own copy of the host-only ``repro.core``
 modules: the decentralized protocol (network, node, gossip, ledger, duel,
-PoS routing, policy).  ``gametheory`` and ``creditsim`` run on JAX and
-are ROADMAP Queue A item 9."""
+PoS routing, policy), and the ports of the reference's JAX modules of
+section 5 on tensors: ``gametheory`` (the stake ODE, RK4) and
+``creditsim`` (its Monte Carlo counterpart)."""
 
 from repro_torch.core.duel import (DuelOutcome, DuelParams,
                                    expected_extra_requests, run_duel)

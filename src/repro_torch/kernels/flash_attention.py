@@ -5,6 +5,11 @@ The CUDA kernel replaces the TPU kernel
 sliding-window or bidirectional attention with native GQA and an online
 softmax in float32.  Its plain version is ``kernels.ref.flash_ref``;
 ``kernels.ops.attention`` picks between the two by the tensors' device.
+
+The kernel is forward-only, like the TPU kernel.  ``FlashAttentionFn``
+gives it a gradient: its backward recomputes the attention through the
+plain version and differentiates that, as the reference leaves its
+backward to XLA's differentiation of a plain function.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the widths it is built for: the draft's, qwen3-8b's, recurrentgemma-9b's
@@ -78,3 +84,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention_cuda.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Row 1 under autograd: ``apply(q, k, v, causal, window)``.  The
+    forward launches the kernel (``flash_attention_cuda``) and saves q, k
+    and v; the backward recomputes the attention through ``flash_ref``
+    (float32 scores, the whole (Sq, Skv) matrix per head) and returns
+    ``torch.autograd.grad`` of it, for the inputs that need one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_ref(*inputs, causal=ctx.causal, window=ctx.window)
+            grads = torch.autograd.grad(out, inputs, grad)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad[:3])) + (None, None)

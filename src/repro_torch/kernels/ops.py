@@ -8,6 +8,11 @@ launches; ``launch_counts`` reads them (``merge_launches``: the split
 decode calls that also launched the merge of their splits) and
 ``reset_launch_counts`` zeroes them, so a run can show that its path went
 through the kernels.
+
+Under autograd, prefill attention on the card goes through
+``FlashAttentionFn`` (the kernel forward, a plain-recompute backward); the
+decode and verify rows only serve and have no backward, so on the card
+they raise rather than cut the graph (``forbid_grad``).
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.flash_decode import flash_decode_cuda
 from repro_torch.kernels.paged_decode import (paged_decode_cuda,
                                               paged_decode_int8_cuda)
@@ -64,11 +70,29 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no attention path for device {t.device}")
 
 
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def forbid_grad(row: str, *tensors: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and an input of the
+    forward-only kernel ``row`` requires grad: its output would carry no
+    gradient, and the graph would be cut without a sign."""
+    if _needs_grad(tensors):
+        raise RuntimeError(f"{row} has no backward: call it under "
+                           f"torch.no_grad() or on inputs that do not "
+                           f"require grad")
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True,
               window: Optional[int] = None) -> torch.Tensor:
-    """Prefill attention.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D)."""
+    """Prefill attention.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D).  On
+    the card, with grad mode on and an input requiring grad, the kernel
+    runs under ``FlashAttentionFn``; otherwise it launches directly."""
     if _on_cuda(q):
+        if _needs_grad((q, k, v)):
+            return FlashAttentionFn.apply(q, k, v, causal, window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     return flash_ref(q, k, v, causal=causal, window=window)
 
@@ -79,6 +103,7 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     """Block-table paged decode.  q: (B, 1, H, D); pools (P, page, Hkv, D);
     block_tables: (B, maxp) int32; lengths: (B,) int32."""
     if _on_cuda(q):
+        forbid_grad("paged_decode", q, k_pool, v_pool)
         return paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths)
     return paged_decode_ref(q, k_pool, v_pool, block_tables, lengths)
 
@@ -90,6 +115,7 @@ def decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     lengths: (B,) int32, positions ``max(0, len - window) <= k < len``
     valid."""
     if _on_cuda(q):
+        forbid_grad("decode", q, k_cache, v_cache)
         return flash_decode_cuda(q, k_cache, v_cache, lengths, window=window)
     return decode_ref(q, k_cache, v_cache, lengths, window=window)
 
@@ -102,6 +128,7 @@ def paged_verify(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     before the K new tokens, query j attending positions
     ``<= lengths[b] + j``."""
     if _on_cuda(q):
+        forbid_grad("paged_verify", q, k_pool, v_pool)
         return paged_verify_cuda(q, k_pool, v_pool, block_tables, lengths)
     return paged_verify_ref(q, k_pool, v_pool, block_tables, lengths)
 
@@ -114,6 +141,8 @@ def paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
     bf16 scale pools (P, page, Hkv, 1) riding the same table, dequantized
     in the kernel.  q, tables and lengths as in ``paged_decode``."""
     if _on_cuda(q):
+        forbid_grad("paged_decode_quant", q, k_pool, v_pool, k_scale,
+                    v_scale)
         return paged_decode_int8_cuda(q, k_pool, v_pool, k_scale, v_scale,
                                       block_tables, lengths)
     return paged_decode_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
@@ -128,6 +157,8 @@ def paged_verify_quant(q: torch.Tensor, k_pool: torch.Tensor,
     ``paged_decode_quant``, q, tables and lengths as in
     ``paged_verify``."""
     if _on_cuda(q):
+        forbid_grad("paged_verify_quant", q, k_pool, v_pool, k_scale,
+                    v_scale)
         return paged_verify_int8_cuda(q, k_pool, v_pool, k_scale, v_scale,
                                       block_tables, lengths)
     return paged_verify_quant_ref(q, k_pool, v_pool, k_scale, v_scale,

@@ -43,13 +43,15 @@ def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         q_offset: int = 0) -> torch.Tensor:
-    """Naive O(S^2) attention.  q: (B, Sq, H, D), k/v: (B, Skv, Hkv, D);
-    ``q_offset`` is the absolute position of q[0]."""
+    """Naive O(S^2) attention in float32 (float64 for float64 inputs).
+    q: (B, Sq, H, D), k/v: (B, Skv, Hkv, D); ``q_offset`` is the
+    absolute position of q[0]."""
     _, sq, h, d = q.shape
     skv = k.shape[1]
-    kf = _expand_kv(k, h).float()
-    vf = _expand_kv(v, h).float()
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / (d ** 0.5)
+    acc = torch.promote_types(q.dtype, torch.float32)   # float64 stays
+    kf = _expand_kv(k, h).to(acc)
+    vf = _expand_kv(v, h).to(acc)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), kf) / (d ** 0.5)
     q_pos = torch.arange(sq, device=q.device) + q_offset
     k_pos = torch.arange(skv, device=q.device)
     mask = attention_mask(q_pos, k_pos, causal, window)

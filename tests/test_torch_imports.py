@@ -4,8 +4,12 @@
   (checked in a fresh interpreter, so this process's imports cannot hide
   a leak).
 * Entry points default to the card and raise on this CPU-only host
-  instead of falling back (``--disagg`` and ``--trace`` included); the
-  backend pairs the reference refuses are argparse errors here too.
+  instead of falling back (``--disagg`` and ``--trace`` included, and the
+  training launcher); the backend pairs the reference refuses are
+  argparse errors here too.
+* The training and section 5 copies (``AdamWConfig``, ``DataConfig``,
+  ``GameParams``, ``CreditSimParams``) keep the reference's defaults,
+  and their shared functions agree on a grid of inputs.
 * The port keeps its own copies of ``repro.sim.servicemodel`` /
   ``repro.sim.executor`` (under ``_``-prefixed names where the linter's
   twin-drift rule would see a second definition): every constant equals
@@ -38,7 +42,7 @@ import repro_torch.obs.tracer as ttracer
 import repro_torch.sim.executor as texec
 import repro_torch.sim.servicemodel as tsm
 from repro_torch.configs import get_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -73,7 +77,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert got["bad"] == []
     for must in ("repro_torch.launch.serve", "repro_torch.kernels.ops",
                  "repro_torch.serving.engine", "repro_torch.core.network",
-                 "repro_torch.models.rglru"):
+                 "repro_torch.models.rglru", "repro_torch.launch.train",
+                 "repro_torch.training.optimizer",
+                 "repro_torch.training.train_step",
+                 "repro_torch.training.checkpoint",
+                 "repro_torch.training.tree", "repro_torch.data.pipeline",
+                 "repro_torch.core.gametheory",
+                 "repro_torch.core.creditsim"):
         assert must in got["modules"]
 
 
@@ -91,6 +101,10 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
     for flags in (["--kv-quant", "--disagg"], ["--spec", "--disagg"]):
         with pytest.raises(SystemExit):     # argparse error, not a silent
             serve.main(["--device", "cpu", *flags])  # switch of backend
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "qwen3-8b", "--steps", "1", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.train(cfg, steps=1, batch=1, seq=8)
 
 
 def _public_consts(mod):
@@ -119,6 +133,62 @@ def test_copied_constants_equal_the_reference():
                  ("qwen3-32b", "A100", "vllm", "fp8wo", 0.7)]:
         assert tsm.make_profile(*args).__dict__ == \
             jsm.make_profile(*args).__dict__
+
+
+def test_training_and_section5_copies_equal_the_reference():
+    """The defaults the port's copies keep as fields (``AdamWConfig``,
+    ``DataConfig``, ``GameParams``, ``CreditSimParams``) equal the
+    reference's, and the shared predicates agree on a grid: the learning
+    rate schedule, the cross entropy, the payoff and both right-hand
+    sides."""
+    import dataclasses
+    import jax.numpy as jnp
+    import repro.core.creditsim as jcs
+    import repro.core.gametheory as jgt
+    import repro.data.pipeline as jpipe
+    import repro.training.optimizer as jopt
+    import repro.training.train_step as jstep
+    import repro_torch.core.creditsim as tcs
+    import repro_torch.core.gametheory as tgt
+    import repro_torch.data.pipeline as tpipe
+    import repro_torch.training.optimizer as topt
+    import repro_torch.training.train_step as tstep
+    assert topt.AdamWConfig()._asdict() == jopt.AdamWConfig()._asdict()
+    assert topt.AdamWConfig._fields == jopt.AdamWConfig._fields
+    assert [(f.name, f.default) for f in dataclasses.fields(
+        tpipe.DataConfig)] == [(f.name, f.default) for f in
+                               dataclasses.fields(jpipe.DataConfig)]
+    assert tgt.GameParams._field_defaults == jgt.GameParams._field_defaults
+    assert tcs.CreditSimParams._field_defaults == \
+        jcs.CreditSimParams._field_defaults
+    for cfg in (dict(), dict(warmup_steps=0, total_steps=3),
+                dict(lr=2.0, warmup_steps=7, total_steps=7,
+                     min_lr_ratio=0.5)):
+        for step in range(0, 12):
+            want = float(jopt.lr_schedule(jopt.AdamWConfig(**cfg),
+                                          jnp.asarray(step)))
+            got = float(topt.lr_schedule(topt.AdamWConfig(**cfg),
+                                         torch.tensor(step)))
+            assert math.isclose(got, want, rel_tol=1e-6, abs_tol=1e-12)
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((2, 5, 11)).astype(np.float32) * 3
+    labels = rng.integers(0, 11, (2, 5)).astype(np.int32)
+    assert math.isclose(
+        float(tstep.cross_entropy(torch.from_numpy(logits),
+                                  torch.from_numpy(labels), 11)),
+        float(jstep.cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                  11)), rel_tol=1e-6)
+    for q in ([0.9, 0.1], [0.2, 0.5, 0.7, 0.95]):
+        s = rng.uniform(0.1, 3.0, len(q)).astype(np.float32)
+        pt = tgt.GameParams(q=torch.tensor(q), c=torch.full((len(q),), 0.3),
+                            p_d=0.4)
+        pj = jgt.GameParams(q=jnp.asarray(q, jnp.float32),
+                            c=jnp.full((len(q),), 0.3), p_d=0.4)
+        for fn in ("payoff_delta", "stake_rhs", "share_rhs"):
+            np.testing.assert_allclose(
+                getattr(tgt, fn)(pt, torch.from_numpy(s)).numpy(),
+                np.asarray(getattr(jgt, fn)(pj, jnp.asarray(s))),
+                rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "qwen3-32b", "starcoder2-7b",

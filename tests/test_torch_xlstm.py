@@ -277,3 +277,57 @@ def test_registry_has_every_family_with_the_reference_capabilities():
            for name, f in registry.FAMILIES.items()}
     assert got == want
     assert got["ssm"] == got["audio"] == (False, False, False, False)
+
+
+def test_prefill_decode_gap_is_the_references():
+    """ROADMAP C4: on the card xlstm-1.3b's 48-layer wave logits sat at
+    7.46e-5 of max|logit| from fresh prefills, in float32.  Here both
+    packages run the same check on the same bridged, perturbed float32
+    weights at full block width (d=2048, 4 heads of 512) cut in depth to
+    one group of the pattern's kinds (m, m, s; the vocab cut to 2048): a
+    150-token prefill (two chunks and a padded third), then 3 decode
+    steps, each step's logits against ``apply`` over the same tokens.
+    The port's gap must not exceed twice the reference's (it is then the
+    chunkwise form against the recurrent one, which both share, and
+    depth), and both stay under the 1e-3 gate."""
+    from test_torch_dense_variants import perturbed
+    kw = dict(n_layers=3, dtype="float32", xlstm_pattern=("m", "m", "s"),
+              vocab_size=2048)
+    cfg_j = jax_get_config("xlstm-1.3b").replace(**kw)
+    cfg_t = get_config("xlstm-1.3b").replace(**kw)
+    assert cfg_t.d_model == 2048 and cfg_t.head_dim == 512
+    tree = perturbed(jax.tree_util.tree_map(
+        np.asarray, jregistry.init(jax.random.PRNGKey(7), cfg_j)), 7)
+    pj = jax.tree_util.tree_map(jnp.asarray, tree)
+    pt = bridge.params_from_jax(tree, cfg_t, "cpu")
+    del tree
+    s, k = 150, 3
+    toks = _tokens(3, 1, s + k, cfg_j.vocab_size)
+
+    def rel(a, full):
+        return float(np.abs(np.asarray(a).reshape(full.shape)
+                            - np.asarray(full)).max()
+                     / np.abs(np.asarray(full)).max())
+
+    lg, cj = _J_PREFILL(pj, cfg_j, {"tokens": jnp.asarray(toks[:, :s])})
+    gap_j = 0.0
+    for j in range(k):
+        lg, cj = _J_DECODE(pj, cfg_j, cj,
+                           jnp.asarray(toks[:, s + j:s + j + 1]))
+        full = _J_APPLY(pj, cfg_j,
+                        {"tokens": jnp.asarray(toks[:, :s + j + 1])})
+        gap_j = max(gap_j, rel(lg, full[:, -1]))
+    del pj, cj
+    with torch.no_grad():
+        lg, ct = xlstm.prefill(pt, cfg_t, torch.from_numpy(toks[:, :s]))
+        gap_t = 0.0
+        for j in range(k):
+            lg, ct = xlstm.decode_step(pt, cfg_t, ct, torch.from_numpy(
+                toks[:, s + j:s + j + 1]))
+            full = xlstm.apply(pt, cfg_t, {"tokens": torch.from_numpy(
+                toks[:, :s + j + 1])})[:, -1]
+            gap_t = max(gap_t, rel(lg.numpy(), full.numpy()))
+    print(f"prefill/decode gap of max|logit|: port {gap_t:.3g}, "
+          f"reference {gap_j:.3g}")
+    assert 0 < gap_j < 1e-3 and gap_t < 1e-3
+    assert gap_t <= 2 * gap_j, (gap_t, gap_j)
