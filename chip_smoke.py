@@ -169,6 +169,23 @@ Phases, each of which raises (exit code != 0) when it fails:
    a CUDA generator agreeing with the ODE (the top two of four nodes
    hold more than 0.75 of the stake, the best node's duel win rate above
    the worst's);
+9. the mesh layer: [9a] on the card's one-rank NCCL (1, 1) host mesh,
+   qwen3-8b at its published widths in bf16, the DTensor steps of
+   ``launch.steps`` held to the same steps unsharded on the same seeded
+   weights -- the prefill at all 36 layers (B=4 x 512) and 8 greedy serve
+   steps (logits within 1e-3 of max|logit|, tokens equal), the train step
+   at phase 7's 16 layers, one microbatch of 4 x 512 (first loss within
+   1e-3, the peak of allocated memory leaving 8 GB of the card) -- with
+   row 1 launched once a layer and prefill or train step and row 4 once a
+   layer and serve step on both paths; the sequence-sharded decode
+   (``decode_seq_shard``) in float32 on the plain run's tokens, held to
+   the float32 unsharded steps, launching no row 4; a granite-moe layer
+   under ``moe_a2a`` (one model rank: the einsum path on DTensors) held
+   to the plain ``moe_mlp``; [9b] ``launch.dryrun.lower_one`` on the H100
+   cluster mesh of fake ranks with fake tensors on the card: qwen3-8b at
+   its four input shapes, granite-moe-1b-a400m and dbrx-132b at
+   ``train_4k`` on (32, 8), qwen3-8b ``train_4k`` on (2, 32, 8), each
+   report on a ``dryrun`` line;
 5. each kernel against its plain version again, at the shapes its serve
    phase gave it: the most frequent prefill shape, and the decode or verify
    step of median attended length with that step's own table and lengths;
@@ -194,7 +211,9 @@ type), with ``vs_library`` and ``bound_share``, its launches in phases
 4h-4o whose path runs it, its launches and times there
 (``arch_phases``); the D=256 entries are read in phase 4m.  The
 prefill entry at D=128 adds ``train``: its launches in phase 7 and its
-times there; the one at D=64 ``train_launches`` in phases 6 and 7b.  The last line is ``{"ok":
+times there; the one at D=64 ``train_launches`` in phases 6 and 7b.
+The prefill and contiguous decode entries at D=128 add ``mesh``: their
+launches in phase 9a's sharded prefill, serve and train steps.  The last line is ``{"ok":
 true, "device": ...}``.  Without a CUDA card, or outside a checkout of the
 repository, the script exits with an error before printing any result.
 """
@@ -202,6 +221,7 @@ repository, the script exits with an error before printing any result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import pathlib
 import re
@@ -2943,6 +2963,296 @@ def phase_gametheory() -> dict:
     return r
 
 
+
+# ------------------------------------------------------------ phase 9
+# [9a]: the mesh layer on the card's one-rank NCCL (1, 1) host mesh:
+# qwen3-8b at its published widths, bf16; the prefill and serve at all 36
+# layers (B=MESH_BATCH prompts of MESH_PROMPT tokens, MESH_STEPS greedy
+# steps), the train step cut to phase 7's TRAIN_LAYERS by its rule, on
+# TRAIN_BATCH x TRAIN_SEQ tokens in one microbatch, as phase 7 steps:
+# qwen3-8b's four microbatches would add a float32 accumulator per leaf
+# (4 B a parameter, 17.3 GB at 16 layers), which the card cannot hold
+# beside 52.0 GB of state and embed's 10 GB AdamW update
+MESH_BATCH, MESH_PROMPT, MESH_STEPS = 4, 512, 8
+MESH_REL = 1e-3            # of max|logit|, and the first loss relative
+# the sequence-sharded decode's plain fp32 partials against row 4 (bf16)
+MOE_A2A_ATOL = 2e-2        # granite-moe layer, bf16, DTensor vs plain
+# [9b]: the dry run on the H100 cluster's mesh of fake ranks
+DRYRUN_CASES = (("qwen3-8b", "train_4k", False),
+                ("qwen3-8b", "prefill_32k", False),
+                ("qwen3-8b", "decode_32k", False),
+                ("qwen3-8b", "long_500k", False),
+                ("granite-moe-1b-a400m", "train_4k", False),
+                ("dbrx-132b", "train_4k", False),
+                ("qwen3-8b", "train_4k", True))
+
+
+def _tree_map(fn, t):
+    return ({k: _tree_map(fn, v) for k, v in t.items()}
+            if isinstance(t, dict) else fn(t))
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _mesh_serve(cfg, params, batch, mesh, seq_shard=False, forced=None):
+    """The prefill step and ``MESH_STEPS`` greedy serve steps, plain
+    (``mesh`` None) or on DTensors sharded by ``launch.sharding``:
+    (prefill logits, the steps' logits, their tokens, launches of each).
+    With ``forced`` (MESH_STEPS, B, 1) tokens, step i+1 takes
+    ``forced[i]`` in place of its own greedy token."""
+    import torch
+    from repro_torch.compat import meshenv
+    from repro_torch.configs import _InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import runtime
+    cap = MESH_PROMPT + MESH_STEPS
+    shp = _InputShape("mesh", cap, MESH_BATCH, "prefill")
+
+    def put(tree, specs):
+        return tree if mesh is None else sh.distribute(tree, specs, mesh)
+
+    ctx = (meshenv.mesh_context(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx, runtime.perf_flags(decode_seq_shard_=seq_shard), \
+            torch.no_grad():
+        dp = put(params, None if mesh is None
+                 else sh.params_shardings(params, mesh))
+        ops.reset_launch_counts()
+        lg, cache = build_prefill_step(cfg, shp)(dp, put(batch, None if mesh
+                                                     is None else
+                                                     sh.batch_shardings(
+                                                         batch, mesh)))
+        prefill = _full(lg).float()
+        torch.cuda.synchronize()
+        prefill_launches = ops.launch_counts()
+        serve = build_serve_step(cfg, shp)
+        tok = prefill.argmax(-1).to(torch.int32)
+        logits, toks = [], []
+        ops.reset_launch_counts()
+        for _ in range(MESH_STEPS):
+            lg, cache = serve(dp, cache, put(tok, None if mesh is None else
+                                             sh.batch_spec(tuple(tok.shape),
+                                                           mesh)))
+            logits.append(_full(lg).float())
+            toks.append(logits[-1].argmax(-1).to(torch.int32))
+            tok = toks[-1] if forced is None else forced[len(toks) - 1]
+        torch.cuda.synchronize()
+        serve_launches = ops.launch_counts()
+    del cache, dp
+    return (prefill, torch.stack(logits), torch.stack(toks),
+            prefill_launches, serve_launches)
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _mesh_train(cfg, mesh):
+    """One ``build_train_step`` step of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    pipeline tokens on a fresh seeded state, plain or sharded on ``mesh``:
+    (metrics, launches, peak bytes)."""
+    import torch
+    from repro_torch.compat import meshenv
+    from repro_torch.configs import _InputShape
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.training import init_state
+    dev = torch.device("cuda")
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    batch = train.model_batch(cfg, pipe.batch(0), dev)
+    state = init_state(cfg, torch.Generator(dev).manual_seed(0), dev)
+    step = build_train_step(cfg, _InputShape("train", TRAIN_SEQ,
+                                             TRAIN_BATCH, "train"),
+                            microbatches=1)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = (meshenv.mesh_context(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx:
+        if mesh is not None:
+            pspecs = sh.params_shardings(state["params"], mesh)
+            state = sh.distribute(state, {"params": pspecs, "opt":
+                                          sh.opt_shardings(pspecs)}, mesh)
+            batch = sh.distribute(batch, sh.batch_shardings(batch, mesh),
+                                  mesh)
+        ops.reset_launch_counts()
+        state, met = step(state, batch)
+        met = {k: float(_full(v)) for k, v in met.items()}
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del state, batch
+    _free()
+    return met, launches, peak
+
+
+def _moe_layer_case(mesh) -> dict:
+    """A granite-moe-1b-a400m layer at full width in bf16 under
+    ``moe_a2a`` on the (1, 1) mesh -- one model rank, so the a2a form
+    returns None and the DTensor einsum path runs -- held to the plain
+    ``moe_mlp``."""
+    import torch
+    from repro_torch.compat import meshenv
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import moe, runtime
+    dev = torch.device("cuda")
+    cfg = get_config("granite-moe-1b-a400m").replace(
+        n_layers=1, dtype="bfloat16", capacity_factor=8.0)
+    params = moe.init(cfg, torch.Generator(dev).manual_seed(1), dev)
+    lp = {k: v[0] for k, v in params["layers"].items()
+          if not isinstance(v, dict)}
+    x = torch.randn(MESH_BATCH, MESH_PROMPT, cfg.d_model, device=dev,
+                    generator=torch.Generator(dev).manual_seed(2)).to(
+                        torch.bfloat16)
+    with torch.no_grad():
+        want, aux_want = moe.moe_mlp(cfg, lp, x)
+        with meshenv.mesh_context(mesh), runtime.perf_flags(moe_a2a_=True):
+            layers = sh.distribute(params["layers"], sh.params_shardings(
+                {"layers": params["layers"]}, mesh)["layers"], mesh)
+            dlp = {k: v[0] for k, v in layers.items()
+                   if not isinstance(v, dict)}
+            got, aux = moe.moe_mlp(cfg, dlp, sh.distribute(
+                x, sh.batch_spec(tuple(x.shape), mesh), mesh))
+    err = float((_full(got).float() - want.float()).abs().max())
+    aux_err = abs(float(_full(aux)) - float(aux_want))
+    if not (err <= MOE_A2A_ATOL and aux_err <= 1e-3):
+        raise AssertionError(f"moe layer on the mesh: {err:.3g} "
+                             f"(aux {aux_err:.3g}) from the plain path")
+    return dict(arch=cfg.name, shape=list(x.shape), max_abs_err=err,
+                aux_abs_err=aux_err)
+
+
+def phase_mesh_host() -> dict:
+    """[9a] The mesh layer's steps on the card's one-rank NCCL (1, 1) host
+    mesh (``launch.make_host_mesh``), each held to the unsharded step on
+    the same seeded weights: qwen3-8b bf16 at all 36 layers, the prefill
+    (logits within ``MESH_REL`` of max|logit|) and ``MESH_STEPS`` serve
+    steps (logits too, greedy tokens equal), again with
+    ``decode_seq_shard`` (the sequence-sharded decode: plain partials and
+    all-reduces on the model group); the train step at phase 7's
+    ``TRAIN_LAYERS`` (first loss within ``MESH_REL``; the peak of
+    allocated memory leaving ``MIN_FREE_BYTES`` of the card); a
+    granite-moe layer under ``moe_a2a`` against the plain ``moe_mlp``.
+    The ``decode_seq_shard`` serve runs in float32 on the plain float32
+    run's tokens, held to it (row 4's float32 body) as phase 3 holds its
+    engines.
+    Row 1 must launch once a layer and prefill (train: a layer and
+    microbatch), row 4 once a layer and serve step, on both paths, no
+    other port kernel; no row 4 under ``decode_seq_shard``."""
+    import torch
+    from repro_torch.compat import meshenv
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_host_mesh, serve
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-8b").replace(dtype="bfloat16")
+    params = serve.seeded_params(0, cfg, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT),
+                           generator=torch.Generator(dev).manual_seed(3),
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    out = {}
+    with meshenv.process_group("nccl"):
+        mesh = make_host_mesh("cuda")
+        want = _mesh_serve(cfg, params, batch, None)
+        runs = [("plain", want, want),
+                ("mesh", _mesh_serve(cfg, params, batch, mesh), want)]
+        del params
+        _free()
+        # the seq-sharded decode, its partials plain torch, in float32
+        # (phase 3's model width and gate: in bf16 the two attentions'
+        # roundings part the logits by ~2e-2 of max|logit| over 36
+        # layers), on the plain run's tokens, against the unsharded steps
+        cfg32 = cfg.replace(dtype="float32")
+        params32 = serve.seeded_params(0, cfg32, dev)
+        want32 = _mesh_serve(cfg32, params32, batch, None)
+        runs += [("plain_fp32", want32, want32),
+                 ("seq_shard_fp32", _mesh_serve(cfg32, params32, batch, mesh,
+                                                seq_shard=True,
+                                                forced=want32[2]), want32)]
+        del params32
+        zero = dict.fromkeys(want[3], 0)
+        for name, (pre, logits, toks, pl, sl), ref in runs:
+            r = dict(prefill_rel=_rel_err(pre, ref[0]),
+                     serve_rel=_rel_err(logits, ref[1]),
+                     prefill_bit_equal=bool(torch.equal(pre, ref[0])),
+                     serve_bit_equal=bool(torch.equal(logits, ref[1])),
+                     tokens_equal=bool(torch.equal(toks, ref[2])),
+                     prefill_launches=pl, serve_launches=sl)
+            if not (r["prefill_rel"] <= MESH_REL
+                    and r["serve_rel"] <= MESH_REL and r["tokens_equal"]):
+                raise AssertionError(f"mesh {name}: {r}")
+            want_pl = {**zero, "flash_attention": cfg.n_layers}
+            want_sl = {**zero, "flash_decode": 0 if name.startswith("seq")
+                       else cfg.n_layers * MESH_STEPS}
+            if pl != want_pl or sl != want_sl:
+                raise AssertionError(f"mesh {name} launches: prefill {pl}, "
+                                     f"serve {sl}; want {want_pl}, {want_sl}")
+            out[name] = r
+            log(f"  {name}: prefill {r['prefill_rel']:.3g} of max|logit| "
+                f"(bit-equal {r['prefill_bit_equal']}), serve "
+                f"{r['serve_rel']:.3g} (bit-equal {r['serve_bit_equal']}), "
+                f"tokens equal; launches prefill "
+                f"{pl['flash_attention']}, serve {sl['flash_decode']}")
+        del runs, want, want32
+        _free()
+        tcfg = cfg.replace(n_layers=TRAIN_LAYERS)
+        plain_met, plain_launches, plain_peak = _mesh_train(tcfg, None)
+        met, launches, peak = _mesh_train(tcfg, mesh)
+        total = torch.cuda.get_device_properties(0).total_memory
+        mb = 1
+        rel = abs(met["loss"] - plain_met["loss"]) / abs(plain_met["loss"])
+        want_tl = {**zero, "flash_attention": tcfg.n_layers * mb}
+        if not (rel <= MESH_REL and launches == want_tl == plain_launches
+                and total - peak >= MIN_FREE_BYTES):
+            raise AssertionError(
+                f"mesh train: loss {met['loss']} vs {plain_met['loss']}, "
+                f"launches {launches} / {plain_launches} (want {want_tl}), "
+                f"peak {peak / 1e9:.1f} of {total / 1e9:.1f} GB")
+        out["train"] = dict(layers=tcfg.n_layers, microbatches=mb,
+                            loss=met["loss"], loss_plain=plain_met["loss"],
+                            loss_rel=rel, grad_norm=met["grad_norm"],
+                            grad_norm_plain=plain_met["grad_norm"],
+                            launches=launches, peak_gb=peak / 1e9,
+                            peak_plain_gb=plain_peak / 1e9,
+                            total_gb=total / 1e9)
+        log(f"  train ({tcfg.n_layers} layers, {mb} microbatches): loss "
+            f"{met['loss']:.6f} vs {plain_met['loss']:.6f} plain "
+            f"({rel:.3g}), grad norm {met['grad_norm']:.6f} vs "
+            f"{plain_met['grad_norm']:.6f}; peak {peak / 1e9:.1f} GB "
+            f"(plain {plain_peak / 1e9:.1f}) of {total / 1e9:.1f}; "
+            f"launches {launches}")
+        out["moe_layer"] = _moe_layer_case(mesh)
+        log(f"  granite-moe layer under moe_a2a: {out['moe_layer']}")
+    log("mesh_host " + json.dumps(out))
+    return out
+
+
+def phase_mesh_dryrun() -> list:
+    """[9b] ``launch.dryrun.lower_one`` on the H100 cluster's mesh of fake
+    ranks, fake tensors on the card: each of ``DRYRUN_CASES``, its report
+    on a line of its own; a report with an error fails the phase."""
+    from repro_torch.launch.dryrun import lower_one
+    reports = []
+    for arch, shape, multi_pod in DRYRUN_CASES:
+        t0 = time.perf_counter()
+        rep = lower_one(arch, shape, multi_pod=multi_pod, device="cuda")
+        rep["wall_s"] = round(time.perf_counter() - t0, 1)
+        log("dryrun " + json.dumps(rep))
+        reports.append(rep)
+    return reports
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3036,6 +3346,11 @@ def main() -> int:
     small = phase_train_small()
     log("[8] game theory on the card (gametheory, creditsim)" + at())
     phase_gametheory()
+    log("[9a] the mesh layer on the card's (1, 1) NCCL host mesh" + at())
+    mesh = phase_mesh_host()
+    _free()
+    log("[9b] the dry run on the H100 cluster mesh (fake ranks)" + at())
+    phase_mesh_dryrun()
     log("[5] kernels vs their plain versions at the serve phases' shapes"
         + at())
     main_cases = phase_main_shapes(seen)
@@ -3067,6 +3382,12 @@ def main() -> int:
                    grads=sum(a["row1_launches"] for a in grads.values()),
                    train_small=small["launches"]["flash_attention"])}
                if entry == "flash_attention_d64" else {}),
+            # the mesh layer's steps on the card's (1, 1) host mesh (9a)
+            **({"mesh": dict(
+                prefill=mesh["mesh"]["prefill_launches"][kernel],
+                serve=mesh["mesh"]["serve_launches"][kernel],
+                train=mesh["train"]["launches"][kernel])}
+               if entry in ("flash_attention", "flash_decode") else {}),
             # the new configs' serve phases that run it, each with its
             # launches there and its times at that phase's shapes
             arch_phases={

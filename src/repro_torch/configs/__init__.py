@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.models.config import ModelConfig
 
@@ -61,3 +61,8 @@ def get_config(arch: str, shape: Optional[str] = None) -> ModelConfig:
                          _DEFAULT_LONG_CONTEXT_WINDOW)
         cfg = cfg.replace(name=cfg.name + "-window", sliding_window=window)
     return cfg
+
+
+def grid() -> List[Tuple[str, str]]:
+    """Every (arch, input shape) combination: 10 x 4 = 40."""
+    return [(a, s) for a in sorted(ARCHS) for s in _INPUT_SHAPES]

@@ -13,14 +13,40 @@ Under autograd, prefill attention on the card goes through
 ``FlashAttentionFn`` (the kernel forward, a plain-recompute backward); the
 decode and verify rows only serve and have no backward, so on the card
 they raise rather than cut the graph (``forbid_grad``).
+
+Two more kinds of input take explicit branches:
+
+* **A DTensor** (the mesh layer's sharded steps): ``attention`` and
+  ``decode`` redistribute their inputs so that every rank holds whole
+  sequences of its batch rows and of its heads (batch over the data
+  axes, heads over ``model`` when both head counts divide it, the cache's
+  sequence gathered), run the kernel -- or, on the CPU, the plain version
+  -- on the local shards, and wrap the result as a DTensor of the same
+  placements; ``to_local``/``from_local`` carry gradients.  A CUDA
+  DTensor never reaches the plain version.
+* **Fake tensors** (only the dry run and ``launch.specs`` make them)
+  take the plain version: there is nothing to launch.  A plain ``meta``
+  tensor, like any device but the card and the CPU, has no attention
+  path and raises.  Under
+  autograd it is recomputed in the backward, as ``FlashAttentionFn``
+  recomputes, so the saved tensors are the card's.  A hook the
+  dry run sets (``kernel_scope``) brackets each such call, so that its
+  byte count reads the kernel's operands and result, not the plain
+  version's intermediates.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+import math
+from contextvars import ContextVar
+from typing import Callable, Dict, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.compat import meshenv
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention_cuda)
 from repro_torch.kernels.flash_decode import flash_decode_cuda
@@ -62,12 +88,84 @@ KERNELS = {
 }
 
 
+def _abstract(t: torch.Tensor) -> bool:
+    """A fake tensor: shapes only, nothing to launch on."""
+    return isinstance(t, FakeTensor)
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
+    if isinstance(t, DTensor):
+        raise TypeError("the paged rows take no DTensor: engines run "
+                        "unsharded")
+    if _abstract(t):
+        return False
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no attention path for device {t.device}")
+
+
+# the dry run's bracket around a plain version run on fake tensors:
+# (kernel name, inputs) -> context manager
+_KERNEL_SCOPE: ContextVar[Optional[Callable]] = ContextVar(
+    "repro_torch_kernel_scope", default=None)
+
+
+@contextlib.contextmanager
+def kernel_scope(hook: Callable):
+    """Call ``hook(name, inputs)`` (a context manager) around each
+    kernel's plain version run on fake tensors in the block."""
+    tok = _KERNEL_SCOPE.set(hook)
+    try:
+        yield
+    finally:
+        _KERNEL_SCOPE.reset(tok)
+
+
+def _abstract_call(name: str, plain: Callable, *inputs, **kw):
+    hook = _KERNEL_SCOPE.get()
+    scope = (contextlib.nullcontext() if hook is None
+             else hook(name, inputs))
+    with scope:
+        return plain(*inputs, **kw)
+
+
+def _attention_dims(mesh, b: int, heads) -> Dict[str, int]:
+    """Which mesh dims shard an attention call's tensors: the batch axes
+    dim 0 when they divide ``b``, ``model`` dim 2 (heads) when it divides
+    every count in ``heads``; the rest replicate."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    bx = [a for a in ("pod", "data") if a in sizes]
+    dims: Dict[str, int] = {}
+    if bx and b % math.prod(sizes[a] for a in bx) == 0:
+        dims.update({a: 0 for a in bx})
+    if "model" in sizes and all(h % sizes["model"] == 0 for h in heads):
+        dims["model"] = 2
+    return dims
+
+
+def _to_local(t: torch.Tensor, mesh, shard_dims: Dict[str, int]
+              ) -> torch.Tensor:
+    """The local shard of ``t`` (a plain tensor counts as replicated)
+    redistributed to ``shard_dims``, contiguous."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    want = meshenv.placed(mesh, shard_dims)
+    if list(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    return t.to_local().contiguous()
+
+
+def _from_local(out: torch.Tensor, like: DTensor,
+                shard_dims: Dict[str, int]) -> DTensor:
+    """``out``, this rank's shard of a tensor shaped as ``like``, as a
+    contiguous DTensor placed by ``shard_dims`` (its shards even)."""
+    mesh = like.device_mesh
+    return DTensor.from_local(out.contiguous(), mesh,
+                              meshenv.placed(mesh, shard_dims),
+                              run_check=False)
 
 
 def _needs_grad(tensors) -> bool:
@@ -89,7 +187,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               window: Optional[int] = None) -> torch.Tensor:
     """Prefill attention.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D).  On
     the card, with grad mode on and an input requiring grad, the kernel
-    runs under ``FlashAttentionFn``; otherwise it launches directly."""
+    runs under ``FlashAttentionFn``; otherwise it launches directly.  A
+    DTensor runs on its local batch rows and heads."""
+    if isinstance(q, DTensor):
+        mesh = q.device_mesh
+        dims = _attention_dims(mesh, q.shape[0], (q.shape[2], k.shape[2]))
+        out = attention(*(_to_local(t, mesh, dims) for t in (q, k, v)),
+                        causal=causal, window=window)
+        return _from_local(out, q, dims)
+    if _abstract(q):
+        if _needs_grad((q, k, v)):
+            # as FlashAttentionFn: keep q, k, v and recompute in backward
+            from torch.utils.checkpoint import checkpoint
+            return checkpoint(_abstract_call, "flash_attention", flash_ref,
+                              q, k, v, causal=causal, window=window,
+                              use_reentrant=False)
+        return _abstract_call("flash_attention", flash_ref, q, k, v,
+                              causal=causal, window=window)
     if _on_cuda(q):
         if _needs_grad((q, k, v)):
             return FlashAttentionFn.apply(q, k, v, causal, window)
@@ -113,7 +227,19 @@ def decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            window: Optional[int] = None) -> torch.Tensor:
     """Contiguous decode.  q: (B, 1, H, D); caches (B, S, Hkv, D);
     lengths: (B,) int32, positions ``max(0, len - window) <= k < len``
-    valid."""
+    valid.  A DTensor runs on its local batch rows and heads over the
+    whole cache sequence."""
+    if isinstance(q, DTensor):
+        mesh = q.device_mesh
+        dims = _attention_dims(mesh, q.shape[0],
+                               (q.shape[2], k_cache.shape[2]))
+        local = [_to_local(t, mesh, dims) for t in (q, k_cache, v_cache)]
+        lens = _to_local(lengths, mesh,
+                         {a: 0 for a, d in dims.items() if d == 0})
+        return _from_local(decode(*local, lens, window=window), q, dims)
+    if _abstract(q):
+        return _abstract_call("flash_decode", decode_ref, q, k_cache,
+                              v_cache, lengths, window=window)
     if _on_cuda(q):
         forbid_grad("decode", q, k_cache, v_cache)
         return flash_decode_cuda(q, k_cache, v_cache, lengths, window=window)

@@ -1,0 +1,123 @@
+"""Step builders for the dry run and the launchers: the train step, the
+prefill step and the serve step (one decode token), per architecture.
+
+Port of ``repro.launch.steps``.  The reference's XLA chunk arguments
+(``q_chunk``, ``kv_chunk``, ``skip_masked_blocks``, xlstm's ``chunk``)
+are accepted and dropped: the port's families take none, as
+``make_train_step`` already drops them.
+
+Under a mesh (``compat.meshenv.mesh_context``) the steps take DTensors
+sharded by ``launch.sharding`` -- the state or params, the batch, the
+cache -- and run the same code; the prefill step lays its cache out by
+the cache specs, as the reference's ``out_shardings`` do.  The mesh
+covers the dense, vlm and moe families; the hybrid, ssm and audio
+families raise ``NotImplementedError`` under a mesh.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.compat import meshenv
+from repro_torch.configs import _InputShape
+from repro_torch.launch import sharding
+from repro_torch.models import registry
+from repro_torch.models.config import ModelConfig
+from repro_torch.training.optimizer import AdamWConfig
+from repro_torch.training.train_step import make_train_step
+
+# microbatch count for train_4k per architecture
+_TRAIN_MICROBATCHES = {
+    "dbrx-132b": 8, "command-r-plus-104b": 8, "qwen3-32b": 8,
+    "recurrentgemma-9b": 4, "qwen3-8b": 4, "starcoder2-7b": 4,
+    "qwen2-vl-7b": 4, "granite-moe-1b-a400m": 2, "xlstm-1.3b": 2,
+    "whisper-base": 1,
+}
+# the families whose steps run under a mesh
+_MESH_FAMILIES = ("dense", "vlm", "moe")
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` when a mesh is active and ``cfg``'s
+    family has no sharded steps yet."""
+    if meshenv.current_mesh() is not None and \
+            cfg.family not in _MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family has no steps under a mesh "
+            f"yet (ROADMAP Queue A item 10, the hybrid, ssm and audio "
+            f"families)")
+
+
+def microbatches_for(cfg: ModelConfig, shape: _InputShape, mesh=None
+                     ) -> int:
+    """The architecture's microbatch count, halved until it divides the
+    rows of the batch -- under ``mesh``, each rank's rows (the batch dim
+    over its axes, as ``sharding.batch_spec`` shards it), as every rank
+    takes an equal slice of every microbatch.  Where the reference's
+    GSPMD spreads a microbatch of fewer rows than shards, the port halves
+    the count: dbrx-132b, qwen3-32b and command-r-plus-104b train_4k run
+    4 microbatches, not 8, on the (2, 32, 8) mesh's 4 rows per rank."""
+    rows = shape.global_batch
+    if mesh is not None:
+        rows //= meshenv.mesh_size(
+            mesh, sharding.batch_spec((rows,), mesh)[0])
+    mb = _TRAIN_MICROBATCHES.get(cfg.name.replace("-window", ""), 4)
+    while rows % mb != 0:
+        mb //= 2
+    return max(mb, 1)
+
+
+def build_train_step(cfg: ModelConfig, shape: _InputShape,
+                     microbatches: Optional[int] = None,
+                     q_chunk: int = 1024, kv_chunk: int = 1024,
+                     skip_masked_blocks: bool = False):
+    """``train_step(state, batch) -> (state, metrics)`` with AdamW's
+    defaults and ``microbatches``, or else the architecture's count
+    under the mesh the step runs in (``microbatches_for``)."""
+    del q_chunk, kv_chunk, skip_masked_blocks
+    check_mesh_family(cfg)
+
+    def train_step(state, batch):
+        check_mesh_family(cfg)
+        n = microbatches or microbatches_for(cfg, shape,
+                                             meshenv.current_mesh())
+        return make_train_step(cfg, AdamWConfig(), microbatches=n)(
+            state, batch)
+
+    return train_step
+
+
+def build_prefill_step(cfg: ModelConfig, shape: _InputShape,
+                       q_chunk: int = 1024, kv_chunk: int = 1024):
+    """``prefill_step(params, batch) -> (logits, cache)`` with a cache of
+    ``shape.seq_len`` positions."""
+    del q_chunk, kv_chunk
+    check_mesh_family(cfg)
+    fam = registry.get_family(cfg)
+
+    def prefill_step(params, batch):
+        check_mesh_family(cfg)
+        logits, cache = fam.prefill(params, cfg, batch,
+                                    capacity=shape.seq_len)
+        mesh = meshenv.current_mesh()
+        if mesh is not None:
+            specs = sharding.cache_shardings(cache, mesh)
+            cache = {k: meshenv.with_sharding_constraint(v, specs[k])
+                     for k, v in cache.items()}
+        return logits, cache
+
+    return prefill_step
+
+
+def build_serve_step(cfg: ModelConfig, shape: _InputShape):
+    """``serve_step(params, cache, token) -> (logits, cache)``: one decode
+    token against a cache of ``shape.seq_len`` positions."""
+    del shape
+    check_mesh_family(cfg)
+    fam = registry.get_family(cfg)
+
+    def serve_step(params, cache, token):
+        check_mesh_family(cfg)
+        return fam.decode_step(params, cfg, cache, token)
+
+    return serve_step

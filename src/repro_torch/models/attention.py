@@ -3,8 +3,9 @@
 Port of ``repro.models.attention``: the masking constant,
 ``reference_attention`` (naive masked softmax over the whole sequence),
 ``decode_attention`` with per-row cache lengths, the multi-token
-``verify_attention`` of speculative decoding, and the int8 KV codec
-``kv_quantize`` / ``kv_dequantize``.  Masked scores take the
+``verify_attention`` of speculative decoding, the int8 KV codec
+``kv_quantize`` / ``kv_dequantize``, and the mesh layer's
+``decode_attention_seqsharded``.  Masked scores take the
 finite constant below, never ``-inf``: ``exp`` then underflows cleanly, a
 fully masked row averages V uniformly instead of producing NaN, and the
 kernels use the same constant so the two cannot disagree on what "masked"
@@ -16,6 +17,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.compat import meshenv
 
 _NEG_INF = -1e30
 
@@ -134,3 +139,112 @@ def kv_dequantize(q: torch.Tensor, scale: torch.Tensor,
                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """int8 values times their scales, in fp32, cast to ``dtype``."""
     return (q.float() * scale.float()).to(dtype)
+
+
+def _write_local(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
+                 in_range: torch.Tensor) -> None:
+    """cache[:, slot] = new[:, 0] where ``in_range``, in place; slot: a 0-d
+    index already clamped into the cache."""
+    idx = slot.reshape(1)
+    old = cache.index_select(1, idx)
+    cache.index_copy_(1, idx, torch.where(in_range, new.to(cache.dtype), old))
+
+
+def _full(x) -> torch.Tensor:
+    """A replicated DTensor's value, or a plain tensor, as a plain one."""
+    return x.to_local() if isinstance(x, DTensor) else torch.as_tensor(x)
+
+
+def decode_attention_seqsharded(q: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor, slot, cache_len, *,
+                                scales: Optional[tuple] = None):
+    """Sequence-sharded decode: each ``model`` rank writes and attends
+    only its own chunk of the cache.
+
+    q: (B, 1, H, D); k_cache/v_cache: (B, S, Hkv, D) DTensors, the batch
+    over the data axes and the sequence over ``model``: rank ``r`` of
+    ``model`` holds positions ``[r * S/m, (r + 1) * S/m)``; k_new/v_new:
+    (B, 1, Hkv, D); slot, cache_len: 0-d, every row's write slot and valid
+    length.  Each rank (a) writes the new K/V into its chunk, in place,
+    only if ``slot`` falls there -- no communication -- and (b) takes the
+    float32 partial max ``m``, sum ``l`` and output ``o`` over its chunk;
+    an all-reduce MAX of ``m`` and SUM of ``l`` and ``o`` on the model
+    group combines them, as the reference's ``pmax``/``psum`` do.  The
+    partial is plain torch, as the reference's is plain ``jnp`` outside
+    any kernel.  With ``scales`` = (k_scale cache, v_scale cache, new k
+    scales, new v scales) the caches are int8, written and dequantized in
+    the chunk.
+
+    With no mesh, or no ``model`` axis, every row's K/V go to ``slot`` in
+    place and the step attends through ``kernels.ops.decode``, the port's
+    counterpart of the reference's fallback ``decode_attention``.
+
+    Returns (out (B, 1, H, D), k_cache, v_cache[, k_scale, v_scale]), the
+    caches being the given ones, updated in place.
+    """
+    quant = scales is not None
+    caches = [k_cache, v_cache] + (list(scales[:2]) if quant else [])
+    news = [k_new, v_new] + (list(scales[2:]) if quant else [])
+    mesh = meshenv.current_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        from repro_torch.kernels import ops
+        idx = torch.as_tensor(slot, device=q.device).long().reshape(1)
+        for c, n in zip(caches, news):
+            c.index_copy_(1, idx, n.to(c.dtype))
+        kf, vf = caches[:2]
+        if quant:
+            kf = kv_dequantize(kf, caches[2], q.dtype)
+            vf = kv_dequantize(vf, caches[3], q.dtype)
+        lens = torch.as_tensor(cache_len, device=q.device).to(
+            torch.int32).reshape(-1).expand(q.shape[0])
+        return (ops.decode(q, kf, vf, lens), *caches)
+    names = tuple(mesh.mesh_dim_names)
+    bx = [a for a in ("pod", "data") if a in names]
+    b_dims = ({a: 0 for a in bx} if bx and q.shape[0] % meshenv.mesh_size(
+        mesh, tuple(bx)) == 0 else {})
+    rep = meshenv.placed(mesh, b_dims)
+    seq = meshenv.placed(mesh, {**b_dims, "model": 1})
+    for c in caches:
+        if not isinstance(c, DTensor) or list(c.placements) != seq:
+            raise ValueError(f"the cache must be a DTensor placed {seq}")
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, rep).to_local()
+
+    q_l = local(q)
+    new_l = [local(n) for n in news]
+    cache_l = [c.to_local() for c in caches]
+    s_loc = cache_l[0].shape[1]
+    shard = mesh.get_local_rank("model")
+    local_slot = _full(slot).long() - shard * s_loc
+    in_range = (local_slot >= 0) & (local_slot < s_loc)
+    safe = torch.clamp(local_slot, 0, s_loc - 1)
+    for c, n in zip(cache_l, new_l):
+        _write_local(c, n, safe, in_range)
+    if quant:
+        kf = kv_dequantize(cache_l[0], cache_l[2], torch.float32)
+        vf = kv_dequantize(cache_l[1], cache_l[3], torch.float32)
+    else:
+        kf, vf = cache_l[0].float(), cache_l[1].float()
+    bl, _, h, d = q_l.shape
+    hkv = kf.shape[2]
+    qg = q_l.reshape(bl, hkv, h // hkv, d).float()
+    sc = torch.einsum("bgrd,bkgd->bgrk", qg, kf) / (d ** 0.5)
+    pos = shard * s_loc + torch.arange(s_loc, device=sc.device)
+    valid = pos[None, :] < _full(cache_len).reshape(-1, 1)
+    sc = torch.where(valid[:, None, None, :], sc,
+                     torch.full((), _NEG_INF, device=sc.device))
+    group = mesh.get_group("model")
+    m = funcol.all_reduce(sc.amax(-1), "max", group)
+    p = torch.exp(sc - m[..., None])
+    l_sum = funcol.all_reduce(p.sum(-1), "sum", group)
+    o = funcol.all_reduce(torch.einsum("bgrk,bkgd->bgrd", p, vf), "sum",
+                          group)
+    out = (o / torch.clamp(l_sum, min=1e-30)[..., None]).reshape(bl, 1, h, d)
+    out = DTensor.from_local(out.to(q_l.dtype).contiguous(), mesh, rep,
+                             run_check=False)
+    return (out, *caches)

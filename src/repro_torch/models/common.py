@@ -1,15 +1,96 @@
-"""Shared layers on tensors: norms, RoPE, initializers.
+"""Shared layers on tensors: norms, RoPE, initializers, sharding.
 
 Port of ``repro.models.common`` (norms, ``rope_freqs``/``apply_rope``,
-the vlm family's ``apply_mrope``, ``dense_init``/``embed_init``).
-Arithmetic runs in float32 and casts back to the input dtype, as in the
-reference.  The reference's sharding
-annotations (``cm.shard``) have no counterpart on one card.
+the vlm family's ``apply_mrope``, ``dense_init``/``embed_init``, and the
+logical sharding annotations ``logical``/``shard``).  Arithmetic runs in
+float32 and casts back to the input dtype, as in the reference.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+
+from repro_torch.compat import meshenv
+from repro_torch.models import runtime
+
+# ---------------------------------------------------------------------------
+# logical sharding: annotate intermediates; the ambient mesh resolves axes.
+# data-parallel batch spans ("pod", "data"); tensor-parallel spans "model".
+# ---------------------------------------------------------------------------
+
+BATCH_AXES = ("pod", "data")
+
+
+def logical(*axes: Optional[str]) -> Tuple:
+    """A spec from logical axis names, dropping mesh axes that do not
+    exist: ``logical("batch", None, "model")`` maps batch to ``("pod",
+    "data")`` when the pod axis exists, else ``("data",)``; "seq" maps to
+    ``"model"`` only under ``runtime.seq_parallel``."""
+    present = meshenv.axis_names()
+    spec = []
+    for a in axes:
+        if a is None:
+            spec.append(None)
+        elif a == "batch":
+            got = tuple(x for x in BATCH_AXES if x in present)
+            spec.append(got if got else None)
+        elif a == "seq":
+            spec.append("model" if (runtime.seq_parallel()
+                                    and "model" in present) else None)
+        else:
+            spec.append(a if a in present else None)
+    return tuple(spec)
+
+
+def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """Constrain the DTensor ``x`` to ``logical(*axes)`` under the ambient
+    mesh; ``x`` unchanged with no mesh or when it is a plain tensor.  An
+    axis that does not divide its dim is dropped, where the reference's
+    GSPMD would pad: DTensor's view rules need even shards."""
+    mesh = meshenv.current_mesh()
+    if mesh is None:
+        return x
+    spec = tuple(e if x.shape[d] % meshenv.mesh_size(mesh, e) == 0 else None
+                 for d, e in enumerate(logical(*axes)))
+    return meshenv.with_sharding_constraint(x, spec)
+
+
+def gathered(w: torch.Tensor) -> torch.Tensor:
+    """A weight as it is used: its FSDP shards (every mesh dim but
+    ``model``) gathered, as FSDP gathers a weight before use and
+    reduce-scatters its gradient after; a plain tensor as it is."""
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    want = [p if n == "model" else Replicate()
+            for n, p in zip(mesh.mesh_dim_names, w.placements)]
+    return w if list(w.placements) == want else w.redistribute(mesh, want)
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` (V, d) at ``tokens`` (B, S) -> (B, S, d).  On
+    DTensors each rank looks its own batch rows up in the whole table, its
+    gradient a partial sum over the shards of the rows: DTensor's index
+    and embedding rules fail in their backward (torch 2.11 and 2.13)."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    rows = list(tokens.placements)
+    if any(p.is_shard() and p.dim != 0 for p in rows):
+        raise ValueError(f"tokens placed {rows}: only the batch dim may be "
+                         f"sharded")
+    whole = gathered(table)
+    whole = whole.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if p.is_shard() else Replicate()
+                         for p in rows])
+    return DTensor.from_local(whole[tokens.to_local()], mesh, rows,
+                              run_check=False)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -80,9 +161,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
     assert sum(sections) == d // 2, (
         f"mrope_sections {sections} must sum to head_dim/2 = {d // 2}")
-    sec = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))              # (D/2,)
+    sec = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                       device=x.device)                       # (D/2,)
     pos = positions.float()[..., sec]                         # (B, S, D/2)
     ang = pos * freqs
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]

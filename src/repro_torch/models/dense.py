@@ -33,6 +33,18 @@ Unlike the reference, whose arrays are immutable, slot caches and pools
 are updated in place (``index_put_``) so decode never copies them; a
 caller must not keep a view of a cache across steps and expect it
 unchanged.
+
+Under a mesh (``compat.meshenv.mesh_context``) ``init``'s weights may be
+DTensors sharded by ``launch.sharding``; the reference's ``cm.shard``
+annotations sit at the same places (the q/k/v projections unless
+``runtime.attn_batch_only``, the MLP's hidden activations, the embedded
+input, each block's output and the logits), with one more after the
+attention's output projection; the weights are FSDP-gathered on use
+(``common.gathered``), the embeddings looked up on each rank's rows
+(``common.embed_rows``), the kernels run on local shards
+(``kernels.ops``), and the slot decode writes a sharded cache shard by
+shard.  The paged and verify steps serve engines and run
+unsharded.
 """
 
 from __future__ import annotations
@@ -41,10 +53,14 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.compat import meshenv
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
-from repro_torch.models.attention import kv_dequantize, kv_quantize
+from repro_torch.models import runtime
+from repro_torch.models.attention import (decode_attention_seqsharded,
+                                          kv_dequantize, kv_quantize)
 from repro_torch.models.config import ModelConfig
 
 _POOLS = ("k_pool", "v_pool")
@@ -108,9 +124,11 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _layer(params: Dict, l: int) -> Dict:
-    """Layer ``l``'s slice of the stacked weights (views, no copies)."""
-    return {k: ({kk: vv[l] for kk, vv in v.items()} if isinstance(v, dict)
-                else v[l]) for k, v in params["layers"].items()}
+    """Layer ``l``'s slice of the stacked weights (views, no copies; under
+    a mesh, FSDP-gathered: ``common.gathered``)."""
+    g = cm.gathered
+    return {k: ({kk: g(vv[l]) for kk, vv in v.items()} if isinstance(v, dict)
+                else g(v[l])) for k, v in params["layers"].items()}
 
 
 # ---------------------------------------------------------------- sub-blocks
@@ -123,6 +141,10 @@ def _project_qkv(lp: Dict, cfg: ModelConfig, h: torch.Tensor,
     q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
     if cfg.use_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    if not runtime.attn_batch_only():
+        q = cm.shard(q, "batch", None, "model")
+        k = cm.shard(k, "batch", None, "model")
+        v = cm.shard(v, "batch", None, "model")
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -147,10 +169,13 @@ def _step_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
 
 def _mlp(lp: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.act == "swiglu":
-        return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+        g = cm.shard(h @ lp["w_gate"], "batch", None, "model")
+        u = cm.shard(h @ lp["w_up"], "batch", None, "model")
+        return (F.silu(g) * u) @ lp["w_down"]
     u = h @ lp["w_up"]
     if cfg.use_bias:
         u = u + lp["b_up"]
+    u = cm.shard(u, "batch", None, "model")
     out = cm.gelu(u) @ lp["w_down"]
     return out + lp["b_down"] if cfg.use_bias else out
 
@@ -163,7 +188,11 @@ def _finish_block(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
     stream, or for a parallel block over the block's input norm ``h``
     beside the attention (``x + attn + mlp(h)``)."""
     b, s = x.shape[:2]
-    attn = attn.reshape(b, s, cfg.q_dim) @ lp["wo"]
+    # under a mesh the output projection's partial sums over "model" are
+    # summed here, where the reference's GSPMD sums them: left partial,
+    # DTensor would carry them into the norm and run the MLP unsharded
+    attn = cm.shard(attn.reshape(b, s, cfg.q_dim) @ lp["wo"], "batch",
+                    "seq", None)
     if cfg.use_bias:
         attn = attn + lp["bo"]
     if cfg.parallel_block:
@@ -176,8 +205,9 @@ def logits_of(params: Dict, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
     """The head: ``embed.T`` when the embeddings are tied, else
     ``lm_head``."""
-    return x @ (params["embed"].T if cfg.tie_embeddings
-                else params["lm_head"])
+    head = cm.gathered(params["embed"].T if cfg.tie_embeddings
+                       else params["lm_head"])
+    return cm.shard(x @ head, "batch", None, "model")
 
 
 # ------------------------------------------------------------------ forward
@@ -194,7 +224,8 @@ def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
     else:
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = params["embed"][tokens]
+        x = cm.embed_rows(params["embed"], tokens)
+    x = cm.shard(x, "batch", "seq", None)
     positions = batch.get("positions")
     if positions is None:
         base = torch.arange(s, device=x.device)
@@ -224,7 +255,8 @@ def _forward_blocks(params: Dict, cfg: ModelConfig, inputs,
         h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
         q, k, v = _project_qkv(lp, cfg, h, positions)
         attn = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
-        x = _finish_block(lp, cfg, x, h, attn, mlp)
+        x = cm.shard(_finish_block(lp, cfg, x, h, attn, mlp), "batch", "seq",
+                     None)
         if kvs is None:
             continue
         out = {"k": k, "v": v}
@@ -298,7 +330,11 @@ def _cache_of(kvs: Dict[str, list], cap: int, s: int,
     def ring(a: torch.Tensor) -> torch.Tensor:
         # (L, B, S, Hkv, dh) -> (L, B, cap, Hkv, dh)
         if cap <= s:
-            return torch.roll(a[:, :, -cap:], shifts=s % cap, dims=2)
+            # no roll when s is a multiple of cap: a DTensor has no roll
+            # rule in some torch releases
+            tail = a[:, :, -cap:]
+            return (torch.roll(tail, shifts=s % cap, dims=2) if s % cap
+                    else tail.contiguous())
         return F.pad(a, (0, 0, 0, 0, 0, cap - s))
 
     cache = {name: ring(torch.stack(a)) for name, a in kvs.items()}
@@ -307,6 +343,35 @@ def _cache_of(kvs: Dict[str, list], cap: int, s: int,
 
 
 # ---------------------------------------------------------------- slot decode
+def _write_slots(c: torch.Tensor, slot: torch.Tensor,
+                 w: torch.Tensor) -> None:
+    """c[b, slot[b]] = w[b, 0] for every row, in place.  c: one layer's
+    cache (B, C, ...); slot: (B,); w: (B, 1, ...).  A DTensor cache is
+    written shard by shard: each rank writes its own rows where the slot
+    falls in its chunk of positions, with no communication but the
+    gather of ``w`` to whole rows."""
+    if not isinstance(c, DTensor):
+        rows = torch.arange(c.shape[0], device=c.device)
+        c.index_put_((rows, slot), w[:, 0])
+        return
+    mesh = c.device_mesh
+    keep = [p if p == Shard(0) else Replicate() for p in c.placements]
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    w_l = w.redistribute(mesh, keep).to_local()
+    c_l = c.to_local()
+    b0, s0 = meshenv.shard_offset(c, 0), meshenv.shard_offset(c, 1)
+    sl = slot.to_local() if isinstance(slot, DTensor) else slot
+    sl = sl[b0:b0 + c_l.shape[0]] - s0
+    in_range = (sl >= 0) & (sl < c_l.shape[1])
+    safe = torch.clamp(sl, 0, c_l.shape[1] - 1)
+    rows = torch.arange(c_l.shape[0], device=c_l.device)
+    mask = in_range.reshape((-1,) + (1,) * (c_l.ndim - 2))
+    c_l[rows, safe] = torch.where(mask, w_l[:, 0].to(c_l.dtype),
+                                  c_l[rows, safe])
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype: Optional[torch.dtype] = None,
                device: torch.device | str = "cpu") -> Dict:
@@ -346,16 +411,22 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     "k_scale"/"v_scale": the new KV is quantized on write and the layer's
     cache dequantized to ``cfg.dtype`` before the decode kernel, as the
     reference does.  Returns (logits (B, 1, padded_vocab), cache with
-    length + 1, of the length's own shape).  The reference's
-    sequence-sharded decode is ROADMAP Queue A item 10."""
+    length + 1, of the length's own shape).
+
+    Under a mesh the cache may be DTensors (``launch.sharding``'s cache
+    specs: the sequence over ``model``): each rank writes the rows and
+    positions of its own shard.  With ``runtime.decode_seq_shard`` and a
+    scalar length, each layer attends through
+    ``attention.decode_attention_seqsharded``, as the reference's
+    lock-step branch does."""
     length = cache["length"]
-    x = params["embed"][token]
+    x = cm.embed_rows(params["embed"], token)
     cap = cache["k"].shape[2]
     lens = length.long().reshape(-1).expand(token.shape[0])
-    rows = torch.arange(lens.shape[0], device=lens.device)
     slot = lens % cap
     n_valid = torch.clamp(lens + 1, max=cap).to(torch.int32)
     pos = _step_positions(cfg, lens[:, None])
+    seq_shard = runtime.decode_seq_shard() and length.dim() == 0
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         kc, vc = cache["k"][l], cache["v"][l]
@@ -365,12 +436,20 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
         if cfg.kv_quant:
             writes["k"], writes["k_scale"] = kv_quantize(k)
             writes["v"], writes["v_scale"] = kv_quantize(v)
-        for name, w in writes.items():
-            cache[name][l].index_put_((rows, slot), w[:, 0])
-        if cfg.kv_quant:
-            kc = kv_dequantize(kc, cache["k_scale"][l], _dt(cfg))
-            vc = kv_dequantize(vc, cache["v_scale"][l], _dt(cfg))
-        attn = ops.decode(q, kc, vc, n_valid)
+        if seq_shard:
+            scales = ((cache["k_scale"][l], cache["v_scale"][l],
+                       writes["k_scale"], writes["v_scale"])
+                      if cfg.kv_quant else None)
+            attn = decode_attention_seqsharded(
+                q, kc, vc, writes["k"], writes["v"], length % cap,
+                torch.clamp(length + 1, max=cap), scales=scales)[0]
+        else:
+            for name, w in writes.items():
+                _write_slots(cache[name][l], slot, w)
+            if cfg.kv_quant:
+                kc = kv_dequantize(kc, cache["k_scale"][l], _dt(cfg))
+                vc = kv_dequantize(vc, cache["v_scale"][l], _dt(cfg))
+            attn = ops.decode(q, kc, vc, n_valid)
         x = _finish_block(lp, cfg, x, h, attn, mlp)
     x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
     return logits_of(params, cfg, x), {

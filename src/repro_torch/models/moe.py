@@ -28,19 +28,31 @@ left-padded wave routes them like the reference.
 The decode path is the reference's lock-step one: one scalar cache
 length for every row (``decode_step``), so the family has no slot,
 paged or verify capability and the engine serves it on left-padded
-waves.  The reference's expert-parallel all-to-all variant
-(``_moe_mlp_a2a``) is mesh work, ROADMAP Queue A item 10.
+waves.
+
+Under a mesh the reference's annotations sit at the same places: the
+dispatched buffer and the expert activations (B, E, C, .) with the
+experts over ``model``, and the layer's output.  With
+``runtime.moe_a2a`` the layer runs as ``_moe_mlp_a2a``: tokens
+sequence-sharded over ``model``, each rank routing only its own, and two
+all-to-alls moving the (B, E, C, d) buffers to the ranks that own each
+expert and back.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate
+
+from repro_torch.compat import meshenv
 from repro_torch.models import common as cm
-from repro_torch.models import dense
+from repro_torch.models import dense, runtime
 from repro_torch.models.config import ModelConfig
 
 
@@ -78,24 +90,39 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (gates (B, S, k) float32, experts (B, S, k), the
     Switch load-balance loss ``E * sum_e f_e P_e`` ())."""
+    gates, experts, me, ce = _route_stats(cfg, router_w, x)
+    return gates, experts, cfg.n_experts * torch.sum(me * ce)
+
+
+def _route_stats(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
+    """``route`` with the aux loss's two factors: (gates, experts, the
+    mean router probability per expert ``P_e`` (E,), the share of tokens
+    whose first choice is each expert ``f_e`` (E,))."""
     logits = x.float() @ router_w.float()                  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=(0, 1))                             # (E,)
     ce = F.one_hot(experts[..., 0], cfg.n_experts).float().mean(dim=(0, 1))
-    aux = cfg.n_experts * torch.sum(me * ce)
-    return gates, experts, aux
+    return gates, experts, me, ce
 
 
 def _dispatch(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
     """Sort-free capacity dispatch.  x: (B, S, d) -> (xin (B, E, C, d),
     disp (B, E*C) token index per slot (S: the pad row), gsel (B, E*C)
     float32 gate per slot, aux loss)."""
+    xin, disp, gsel, me, ce = _dispatch_stats(cfg, router_w, x)
+    return xin, disp, gsel, cfg.n_experts * torch.sum(me * ce)
+
+
+def _dispatch_stats(cfg: ModelConfig, router_w: torch.Tensor,
+                    x: torch.Tensor):
+    """``_dispatch`` with the aux loss's factors (``_route_stats``) in
+    place of the loss."""
     b, s, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = expert_capacity(cfg, s)
-    gates, experts, aux = route(cfg, router_w, x)
+    gates, experts, me, ce = _route_stats(cfg, router_w, x)
     ef = experts.reshape(b, s * k)
     gf = gates.reshape(b, s * k)
     order = torch.argsort(ef, dim=1, stable=True)           # (B, S*k)
@@ -121,7 +148,7 @@ def _dispatch(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
     gsel = gsel[:, :E * C]
     xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)      # + the pad row
     xin = torch.gather(xp, 1, disp[:, :, None].expand(b, E * C, d))
-    return xin.reshape(b, E, C, d), disp, gsel, aux
+    return xin.reshape(b, E, C, d), disp, gsel, me, ce
 
 
 def _combine(x: torch.Tensor, eout: torch.Tensor, disp: torch.Tensor,
@@ -140,12 +167,147 @@ def _combine(x: torch.Tensor, eout: torch.Tensor, disp: torch.Tensor,
 def moe_mlp(cfg: ModelConfig, lp: Dict, x: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k expert SwiGLU.  x: (B, S, d) -> (B, S, d), aux
-    loss."""
-    xin, disp, gsel, aux = _dispatch(cfg, lp["router"], x)
+    loss.  Under ``runtime.moe_a2a`` the all-to-all form runs where it
+    can (``_moe_mlp_a2a``).
+
+    On a DTensor the routing, the dispatch and the combine -- row-local,
+    and made of sorts, searches and scatters DTensor has no sharding rules
+    for -- run on this rank's batch rows, and the aux loss's two factors
+    are averaged over the batch shards before their product; the expert
+    products run on DTensors, the experts over ``model``."""
+    if runtime.moe_a2a():
+        out = _moe_mlp_a2a(cfg, lp, x)
+        if out is not None:
+            return out
+    rows = _row_placements(x)
+    x_l = _local(x, rows)
+    # each rank routes its own rows: the router's gradient is a partial
+    # sum over the batch shards
+    router = _local(lp["router"], None, rows and _partial_where_split(rows))
+    xin, disp, gsel, me, ce = _dispatch_stats(cfg, router, x_l)
+    if rows is not None:
+        me, ce = (_mean_over_shards(t, x.device_mesh, rows) for t in (me, ce))
+        xin = DTensor.from_local(xin, x.device_mesh, rows, run_check=False)
+    aux = cfg.n_experts * torch.sum(me * ce)
+    xin = cm.shard(xin, "batch", "model", None, None)
     h = torch.einsum("becd,edf->becf", xin, lp["we_gate"])
     u = torch.einsum("becd,edf->becf", xin, lp["we_up"])
-    eout = torch.einsum("becf,efd->becd", F.silu(h) * u, lp["we_down"])
-    return _combine(x, eout, disp, gsel), aux
+    h = cm.shard(F.silu(h) * u, "batch", "model", None, None)
+    eout = torch.einsum("becf,efd->becd", h, lp["we_down"])
+    out = _combine(x_l, _local(eout, rows), disp, gsel)
+    if rows is not None:
+        out = DTensor.from_local(out.contiguous(), x.device_mesh, rows,
+                                 run_check=False)
+    return cm.shard(out, "batch", "seq", None), aux
+
+
+def _row_placements(x: torch.Tensor):
+    """For a DTensor, placements holding this rank's batch rows whole:
+    dim 0 over the batch axes (when they divide it), the rest
+    replicated; None for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return None
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    bx = tuple(a for a in cm.BATCH_AXES if a in names)
+    split = bool(bx) and x.shape[0] % meshenv.mesh_size(mesh, bx) == 0
+    return meshenv.placed(mesh, {a: 0 for a in bx} if split else {})
+
+
+def _mean_over_shards(t: torch.Tensor, mesh, placements) -> DTensor:
+    """The mean over the shards of the data placed as ``placements`` of
+    each rank's equal-sized statistic ``t``, replicated: their partial sum
+    over the shards, over the shard count.  Its gradient reaches each
+    rank's ``t`` divided by the count, as the mean's does (the backward of
+    a partial sum keeps the replicated gradient on every rank)."""
+    n = math.prod(mesh.size(i) for i, p in enumerate(placements)
+                  if p.is_shard())
+    rep = [Replicate()] * mesh.ndim
+    total = DTensor.from_local(t, mesh, _partial_where_split(placements),
+                               run_check=False)
+    return total.redistribute(mesh, rep) / n
+
+
+def _partial_where_split(placements):
+    """Gradient placements of a replicated input that every rank uses on
+    its own shard of the data placed as ``placements``: a partial sum on
+    the mesh dims that split the data."""
+    return [Partial() if p.is_shard() else Replicate() for p in placements]
+
+
+def _local(t: torch.Tensor, placements=None, grad_placements=None
+           ) -> torch.Tensor:
+    """This rank's shard of the DTensor ``t`` placed as ``placements``
+    (default: replicated); a plain tensor as it is.  ``grad_placements``:
+    how the gradient of the local shard is placed, when not as the
+    shard itself (``DTensor.to_local``)."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    want = list(placements or [Replicate()] * mesh.ndim)
+    if list(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    return t.to_local(grad_placements=grad_placements)
+
+
+def _moe_mlp_a2a(cfg: ModelConfig, lp: Dict, x: torch.Tensor):
+    """Expert-parallel all-to-all dispatch, per rank.
+
+    Tokens are sequence-sharded over ``model``: each rank routes only its
+    own S/m tokens (``_dispatch``, with capacity from S/m), then one
+    ``all_to_all_single`` sends each expert's (B_l, C, d) buffer to the
+    rank that owns it (experts ``[r E/m, (r+1) E/m)`` on rank r), the rank
+    runs its experts over the m senders' buffers, and a second one sends
+    the outputs back for the combine; each rank's aux loss is averaged
+    over every shard (the reference's ``pmean`` over ``model``; its batch
+    shards it leaves to the replicated out spec).  Returns None -- the einsum
+    path runs instead -- with no mesh, no ``model`` axis, ``m == 1``, or
+    shapes that do not divide, as the reference does."""
+    mesh = meshenv.current_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return None
+    m = meshenv.mesh_size(mesh, "model")
+    b, s, d = x.shape
+    names = tuple(mesh.mesh_dim_names)
+    bx = tuple(a for a in cm.BATCH_AXES if a in names)
+    nb = meshenv.mesh_size(mesh, bx)
+    if m == 1 or cfg.n_experts % m or s % m or (bx and b % nb):
+        return None
+    e_loc = cfg.n_experts // m
+
+    x_pl = meshenv.placed(mesh, {**{a: 0 for a in bx}, "model": 1})
+    w_pl = meshenv.placed(mesh, {"model": 0})
+
+    x_l = _local(x, x_pl)                                  # (B_l, S/m, d)
+    # every rank routes its own tokens, and runs its experts on its batch
+    # rows: the gradients are partial sums over the mesh dims that split
+    # those
+    router = _local(lp["router"], None, _partial_where_split(x_pl))
+    w_grad = [w if w.is_shard() else Partial() if x.is_shard()
+              else Replicate() for w, x in zip(w_pl, x_pl)]
+    wg, wu, wd = (_local(lp[k], w_pl, w_grad)
+                  for k in ("we_gate", "we_up", "we_down"))
+    xin, disp, gsel, aux = _dispatch(cfg, router, x_l)     # (B_l, E, C, d)
+    bl, _, c, _ = xin.shape
+    group = mesh.get_group("model")
+    # rank-major (m, B_l, e_loc, C, d): chunk r goes to the owner rank r
+    send = xin.reshape(bl, m, e_loc, c, d).transpose(0, 1).contiguous()
+    recv = funcol.all_to_all_single_autograd(send, None, None, group)
+    # (m senders, B_l, e_loc, C, d) -> (B_l, e_loc, m * C, d)
+    recv = recv.reshape(m, bl, e_loc, c, d).permute(1, 2, 0, 3, 4).reshape(
+        bl, e_loc, m * c, d)
+    h = torch.einsum("becd,edf->becf", recv, wg)
+    u = torch.einsum("becd,edf->becf", recv, wu)
+    eout = torch.einsum("becf,efd->becd", F.silu(h) * u, wd)
+    send = eout.reshape(bl, e_loc, m, c, d).permute(2, 0, 1, 3, 4)
+    back = funcol.all_to_all_single_autograd(send.contiguous(), None, None,
+                                             group)
+    back = back.reshape(m, bl, e_loc, c, d).transpose(0, 1).reshape(
+        bl, cfg.n_experts, c, d)
+    out = DTensor.from_local(_combine(x_l, back, disp, gsel).contiguous(),
+                             mesh, x_pl, run_check=False)
+    return (cm.shard(out, "batch", "seq", None),
+            _mean_over_shards(aux, mesh, x_pl))
 
 
 def _mlp(lp: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -188,10 +350,11 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     position's logits (B, 1, padded_vocab) and {"k", "v":
     (L, B, cap, Hkv, dh), "length": S, a () int32 tensor}; the cache is
     laid out as ``dense.prefill`` lays it out (``capacity`` positions,
-    zero-padded, or a window config's ring)."""
-    s = tokens.shape[1]
+    zero-padded, or a window config's ring).  ``tokens`` may be a batch
+    dict, as the reference's prefill takes."""
     kvs: Dict[str, list] = {}
     x, _ = _forward(params, cfg, tokens, kvs)
+    s = x.shape[1]
     cache = dense._cache_of(kvs, dense._capacity(cfg, s, capacity), s,
                             x.device)
     return dense.logits_of(params, cfg, x[:, -1:]), cache

@@ -47,8 +47,8 @@ def init_opt_state(params) -> Dict[str, Any]:
     ps, build = flatten(params)
 
     def zeros():
-        return build([torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for p in ps])
+        return build([torch.zeros_like(p, dtype=torch.float32)
+                      for p in ps])
 
     return {"mu": zeros(), "nu": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=ps[0].device)}

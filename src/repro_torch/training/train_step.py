@@ -7,16 +7,23 @@ attention runs the row 1 kernel forward and a plain recompute backward
 accumulate in float32 in a loop, where the reference scans.  A param the
 loss does not reach (qwen2-vl's ``embed`` under embedding inputs) gets a
 zero gradient, as JAX gives it: it still decays, and its moments still
-update.  ``state_shape`` (the reference's dry-run path, ``jax.eval_shape``)
-belongs to the mesh layer and is not ported.
+update.  Under a mesh the state and the batch may be DTensors
+(``launch.sharding``): the same code runs, the collectives coming from
+DTensor, and the microbatches hold the reference's rows
+(``_regroup_rows``).  ``state_shape`` is the dry run's abstract train
+state, made of fake tensors (the reference's ``jax.eval_shape``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.models import common as cm
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
@@ -27,11 +34,29 @@ from repro_torch.training.tree import flatten
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab_size: int) -> torch.Tensor:
     """Mean CE over (B, S) in float32; labels < vocab_size; padded classes
-    never appear."""
-    logits = logits.float()
+    never appear.
+
+    Under a mesh the vocab dim is gathered first and the gold logit is
+    read on each rank's own rows: DTensor's gather along a sharded dim (a
+    masked partial) fails on these indices, and its gather's backward
+    allocates a zero gradient of the global shape on every rank."""
+    logits = cm.shard(logits.float(), "batch", None, None)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        mesh, rows = logits.device_mesh, logits.placements
+        lab = labels if isinstance(labels, DTensor) else DTensor.from_local(
+            labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        lab = lab.redistribute(mesh, rows).to_local()
+        gold = DTensor.from_local(_gold(logits.to_local(), lab), mesh, rows,
+                                  run_check=False)
+    else:
+        gold = _gold(logits, labels)
     return torch.mean(logz - gold)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's logit of its label: (B, S, V), (B, S) -> (B, S)."""
+    return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict, aux_weight: float = 0.01
@@ -54,8 +79,64 @@ def loss_and_grads(params, cfg: ModelConfig, batch: Dict):
             build(list(grads)))
 
 
+def _regroup_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """A DTensor batch laid out for ``n`` microbatches: afterwards slice i
+    of the ``n`` equal slices of each rank's rows, over the ranks in shard
+    order, is the global rows ``[i mb, (i + 1) mb)``, the reference's
+    microbatch i, and every rank works on every microbatch.  The grouping
+    is the reference's because the MoE aux loss of a microbatch is not
+    linear in its rows.  One ``all_to_all_single`` over the batch shards
+    moves each slice of ``l = local rows / n`` rows to its rank.  A plain
+    tensor, or rows on one shard, is returned as it is; rows that do not
+    split into ``n`` equal slices raise."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, pl = x.device_mesh, x.placements
+    dims = [i for i, p in enumerate(pl) if p.is_shard()]
+    if any(not pl[i].is_shard(0) for i in dims):
+        raise ValueError(f"a batch is sharded on its rows only, not {pl}")
+    local = x.to_local()
+    if local.shape[0] % n:
+        raise ValueError(f"{local.shape[0]} rows on each rank do not split "
+                         f"into {n} microbatches")
+    ranks = math.prod(mesh.size(i) for i in dims)
+    if n == 1 or ranks == 1:
+        return x
+    coord, r = mesh.get_coordinate(), 0
+    for i in dims:                      # shard order: mesh dims row-major
+        r = r * mesh.size(i) + coord[i]
+    names = tuple(mesh.mesh_dim_names[i] for i in dims)
+    group = (mesh.get_group(dims[0]) if len(dims) == 1
+             else mesh[names]._flatten().get_group())
+    l = local.shape[0] // n
+    # slice t here is global block k = r n + t of l rows: microbatch
+    # k // ranks, held by rank k % ranks
+    dest = [(r * n + t) % ranks for t in range(n)]
+    send = torch.cat([local[t * l:(t + 1) * l]
+                      for t in sorted(range(n), key=dest.__getitem__)])
+    # microbatch i's block for this rank comes from rank (i ranks + r) // n;
+    # received in source order, which is microbatch order
+    src = [(i * ranks + r) // n for i in range(n)]
+    recv = funcol.all_to_all_single(
+        send, [l * src.count(q) for q in range(ranks)],
+        [l * dest.count(q) for q in range(ranks)], group)
+    return DTensor.from_local(funcol.wait_tensor(recv), mesh, pl,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 def _split_microbatch(batch: Dict, n: int, i: int) -> Dict:
+    """Microbatch ``i`` of ``n``: rows ``[i mb, (i + 1) mb)``.  A DTensor
+    batch, laid out by ``_regroup_rows``, is cut on each rank's own rows:
+    slice i of them is the rank's part of those rows, and no batch is
+    gathered."""
     def slc(x):
+        if isinstance(x, DTensor):
+            local = x.to_local()
+            mb = local.shape[0] // n
+            return DTensor.from_local(local[i * mb:(i + 1) * mb],
+                                      x.device_mesh, x.placements,
+                                      run_check=False)
         mb = x.shape[0] // n
         return x[i * mb:(i + 1) * mb]
     return {k: slc(v) for k, v in batch.items()}
@@ -68,8 +149,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     state = {"params": ..., "opt": ...}, updated in place
     (``adamw_update``); batch contains "labels" plus model inputs.  With
     microbatches > 1, gradients are accumulated over equal slices of the
-    (global) batch dimension, and the metrics report ``ce`` as the mean
-    total loss and ``aux`` as 0, as the reference does.  ``apply_kw``
+    (global) batch dimension, each rank's rows of a DTensor batch split
+    as evenly (``_regroup_rows``), and the metrics report ``ce`` as the
+    mean total loss and ``aux`` as 0, as the reference does.  ``apply_kw``
     (``q_chunk``, ``kv_chunk``, xlstm's ``chunk``) are the reference's XLA
     chunk settings; the port's ``apply`` takes none, so they are accepted
     and dropped."""
@@ -80,9 +162,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         if microbatches == 1:
             loss, parts, grads = loss_and_grads(params, cfg, batch)
         else:
+            batch = {k: _regroup_rows(v, microbatches)
+                     for k, v in batch.items()}
             leaves, build = flatten(params)
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             loss = acc[0].new_zeros(())
             for i in range(microbatches):
                 mb = _split_microbatch(batch, microbatches, i)
@@ -105,3 +188,13 @@ def init_state(cfg: ModelConfig, generator: torch.Generator,
                device: torch.device | str) -> Dict[str, Any]:
     params = registry.init(cfg, generator, device)
     return {"params": params, "opt": init_opt_state(params)}
+
+
+def state_shape(cfg: ModelConfig, device: torch.device | str = "cpu"):
+    """The train state of ``cfg`` as fake tensors on ``device``: shapes
+    and dtypes only, nothing allocated (the dry-run path).  Drawn on the
+    CPU, then moved: the draw needs no generator on ``device``."""
+    from repro_torch.compat import meshenv
+    with meshenv.abstract_mode():
+        ts, build = flatten(init_state(cfg, torch.Generator(), "cpu"))
+        return build([t.to(device) for t in ts])

@@ -1,0 +1,150 @@
+"""The port's dry run (mirrors ``tests/test_launch.py``
+``TestCollectiveParser``), on fake process groups in this process.
+
+* One ``all_gather`` on a fake 16-rank group counts its result bytes as
+  an all-gather, and nothing else.
+* An add followed by a 128 x 128 float32 matmul counts only the matmul's
+  operands and result toward the HBM traffic, ``3 * 128*128*4``, and the
+  matmul's 2 * 128^3 FLOPs.
+* ``lower_one("qwen3-8b", "train_4k")`` and ``("granite-moe-1b-a400m",
+  "decode_32k")`` run on the fake 256-rank (32, 8) mesh: their reports
+  have the reference's keys, ``model_flops`` is the reference's formula
+  exactly, and the per-device argument bytes are those of the local
+  shards.  The hybrid, ssm and audio families raise
+  ``NotImplementedError`` under a mesh.
+"""
+
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch.compat import meshenv
+from repro_torch.configs import _INPUT_SHAPES, get_config
+from repro_torch.launch import dryrun
+
+REPORT_KEYS = {"arch", "shape", "kind", "mesh", "perf_variant", "compile_s",
+               "memory", "roofline_compile_s", "per_device",
+               "collective_bytes", "roofline"}
+MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes", "peak_bytes"}
+ROOFLINE_KEYS = {"compute_ms", "memory_ms", "collective_ms", "dominant",
+                 "model_flops", "hlo_flops_global", "useful_fraction"}
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+def test_all_gather_counts_its_result_bytes():
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    with meshenv.fake_process_group(16):
+        fake = FakeTensorMode(allow_non_fake_inputs=True)
+        with fake:
+            x = torch.empty(2, 1024, dtype=torch.bfloat16)
+        c = dryrun.Counter(fake)
+        with c:
+            out = funcol.all_gather_single(x, 0, dist.group.WORLD)
+            out = funcol.wait_tensor(out)
+    assert tuple(out.shape) == (32, 1024)
+    assert c.coll == {"all-gather": 32 * 1024 * 2, "all-reduce": 0,
+                      "reduce-scatter": 0, "all-to-all": 0,
+                      "collective-permute": 0}
+    assert c.flops == 0
+
+
+def test_hbm_rule_skips_elementwise():
+    fake = FakeTensorMode()
+    with fake:
+        p0, p1 = torch.empty(128, 128), torch.empty(128, 128)
+    c = dryrun.Counter(fake)
+    with c:
+        (p0 + p1) @ p1
+    assert c.hbm == 3 * 128 * 128 * 4
+    assert c.flops == 2 * 128 ** 3
+    assert sum(c.coll.values()) == 0
+
+
+def _model_flops(arch, shape):
+    """The reference's formula (``repro.launch.dryrun``)."""
+    from repro.configs import INPUT_SHAPES, get_config as jget
+    cfg, shp = jget(arch, shape), INPUT_SHAPES[shape]
+    tokens = shp.global_batch * (shp.seq_len if shp.kind != "decode" else 1)
+    return (6.0 if shp.kind == "train" else 2.0) * cfg.n_active_params() \
+        * tokens
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-8b", "train_4k"),
+                                        ("granite-moe-1b-a400m",
+                                         "decode_32k")])
+def test_lower_one_reports_on_the_h100_mesh(arch, shape):
+    rep = dryrun.lower_one(arch, shape, device="cpu")
+    assert REPORT_KEYS <= set(rep)
+    assert set(rep["memory"]) == MEMORY_KEYS
+    assert set(rep["roofline"]) == ROOFLINE_KEYS
+    assert set(rep["collective_bytes"]) == set(dryrun._COLLECTIVES)
+    assert rep["mesh"] == "32x8" and rep["kind"] == _INPUT_SHAPES[shape].kind
+    assert rep.get("microbatches") == (4 if shape == "train_4k" else None)
+    assert rep["roofline"]["model_flops"] == _model_flops(arch, shape)
+    assert rep["roofline"]["hlo_flops_global"] == \
+        rep["per_device"]["flops"] * 256
+    assert rep["roofline"]["dominant"] in ("compute", "memory", "collective")
+    assert rep["per_device"]["flops"] > 0
+    assert rep["per_device"]["bytes_accessed"] > 0
+    # the step gathers FSDP weights over "data" and sums over "model"
+    assert rep["collective_bytes"]["all-gather"] > 0
+    assert rep["collective_bytes"]["all-reduce"] > 0
+    mem = rep["memory"]
+    assert mem["peak_bytes"] == mem["temp_bytes"] + mem["argument_bytes"]
+    # argument bytes: the whole inputs over the shards, within what the
+    # unshardable leaves (norm scales, the replicated step count) add
+    from repro_torch.launch.specs import input_specs
+    specs = input_specs(arch, shape)
+    total = sum(t.numel() * t.element_size() for t in _tensors(specs))
+    assert total / 256 <= mem["argument_bytes"] <= total / 256 * 1.05
+
+
+def _tensors(specs):
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            out.append(t)
+    walk({k: v for k, v in specs.items() if k not in ("cfg", "shape")})
+    return out
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b",
+                                  "whisper-base"])
+def test_families_not_yet_under_a_mesh_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
+        dryrun.lower_one(arch, "decode_32k", device="cpu")
+    from repro_torch.launch.steps import build_serve_step
+    cfg = get_config(arch)
+    step = build_serve_step(cfg, _INPUT_SHAPES["decode_32k"])
+    with meshenv.fake_process_group(1):
+        mesh = meshenv.make_mesh((1, 1), ("data", "model"), "cpu")
+        with meshenv.mesh_context(mesh), \
+                pytest.raises(NotImplementedError, match="item 10"):
+            step(None, None, None)
+
+
+@pytest.mark.parametrize("multi_pod,want", [(False, 8), (True, 4)])
+def test_microbatches_divide_each_ranks_rows(multi_pod, want):
+    """train_4k's 256 rows are 8 a rank on (32, 8) and 4 on (2, 32, 8):
+    the 8-microbatch archs halve to 4 there, so that no rank's microbatch
+    is empty; with no mesh the count is the reference's."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import microbatches_for
+    shp = _INPUT_SHAPES["train_4k"]
+    with meshenv.fake_process_group(512 if multi_pod else 256):
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        for arch in ("dbrx-132b", "qwen3-32b", "command-r-plus-104b"):
+            cfg = get_config(arch, "train_4k")
+            assert microbatches_for(cfg, shp) == 8
+            assert microbatches_for(cfg, shp, mesh) == want
+        assert microbatches_for(get_config("qwen3-8b", "train_4k"), shp,
+                                mesh) == 4

@@ -4,9 +4,10 @@
   (checked in a fresh interpreter, so this process's imports cannot hide
   a leak).
 * Entry points default to the card and raise on this CPU-only host
-  instead of falling back (``--disagg`` and ``--trace`` included, and the
-  training launcher); the backend pairs the reference refuses are
-  argparse errors here too.
+  instead of falling back (``--disagg`` and ``--trace`` included, the
+  training launcher, and the dry run, whose fake tensors default to the
+  card; the host mesh is built on the card); the backend pairs the
+  reference refuses are argparse errors here too.
 * The training and section 5 copies (``AdamWConfig``, ``DataConfig``,
   ``GameParams``, ``CreditSimParams``) keep the reference's defaults,
   and their shared functions agree on a grid of inputs.
@@ -83,7 +84,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "repro_torch.training.checkpoint",
                  "repro_torch.training.tree", "repro_torch.data.pipeline",
                  "repro_torch.core.gametheory",
-                 "repro_torch.core.creditsim"):
+                 "repro_torch.core.creditsim",
+                 "repro_torch.compat.meshenv", "repro_torch.launch.mesh",
+                 "repro_torch.launch.sharding", "repro_torch.launch.specs",
+                 "repro_torch.launch.steps", "repro_torch.launch.dryrun",
+                 "repro_torch.models.runtime"):
         assert must in got["modules"]
 
 
@@ -105,6 +110,14 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
         train.main(["--arch", "qwen3-8b", "--steps", "1", "--smoke"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.train(cfg, steps=1, batch=1, seq=8)
+    # the mesh layer: the dry run's fake tensors and the host mesh sit on
+    # the card unless the caller asks for the CPU
+    from repro_torch.compat import meshenv
+    from repro_torch.launch import dryrun, make_host_mesh
+    assert dryrun.main(["--arch", "qwen3-8b", "--shape", "decode_32k"]) == 1
+    with meshenv.process_group("gloo"):
+        assert make_host_mesh().device_type == "cuda"
+        assert make_host_mesh("cpu").device_type == "cpu"
 
 
 def _public_consts(mod):
