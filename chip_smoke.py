@@ -122,7 +122,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    family gets, [4l] qwen2-vl-7b, all 28 layers, on paged engines, and
    [4m] recurrentgemma-9b, all 38 layers, on wave engines (local attention
    at D=256), [4n] xlstm-1.3b, all 48 layers, on wave engines, whose path
-   must launch no port kernel, each node its own weights; then [4o]
+   must launch no port kernel, then prefills of B=4 prompts of 2048 and
+   4096 tokens whose peak memory may grow between them by no more than
+   ``LONG_PREFILL_GROWTH`` activations (the mLSTM carries one state across
+   its chunks), each node its own weights; then [4o]
    whisper-base (bf16, perturbed) through the family interface, which the
    driver's wave path cannot reach: ``prefill`` on B=4 seeded 1500-frame
    embeddings and 32-token prompts and 16 greedy ``decode_step``s, with 18
@@ -182,9 +185,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    the float32 unsharded steps, launching no row 4; a granite-moe layer
    under ``moe_a2a`` (one model rank: the einsum path on DTensors) held
    to the plain ``moe_mlp``; [9b] ``launch.dryrun.lower_one`` on the H100
-   cluster mesh of fake ranks with fake tensors on the card: qwen3-8b at
-   its four input shapes, granite-moe-1b-a400m and dbrx-132b at
-   ``train_4k`` on (32, 8), qwen3-8b ``train_4k`` on (2, 32, 8), each
+   cluster mesh of fake ranks with fake tensors on the card, in four
+   worker processes: qwen3-8b at its four input shapes,
+   granite-moe-1b-a400m, dbrx-132b, recurrentgemma-9b, xlstm-1.3b and
+   whisper-base at ``train_4k`` and the hybrid and ssm families at
+   ``long_500k`` on (32, 8), qwen3-8b ``train_4k`` on (2, 32, 8), each
    report on a ``dryrun`` line;
 5. each kernel against its plain version again, at the shapes its serve
    phase gave it: the most frequent prefill shape, and the decode or verify
@@ -2046,9 +2051,65 @@ def phase_serve_arch(phase):
         f"{cfg.head_dim}, {gb:.1f} GB of weights "
         f"{'shared by both nodes' if shared else 'per node'}")
     _, launches, seen = phase_serve(phase, params)
+    if phase == "4n":
+        xlstm_long_prefill(cfg, params[0])
     del params
     _free()
     return launches, seen
+
+
+# [4n] long prompts through xlstm-1.3b's prefill.  The mLSTM's chunkwise
+# form carries one (B, H, dh, dh) state from chunk to chunk, as the
+# reference's scan does, so from T=2048 to T=4096 the prefill's peak grows
+# by its activations, (B, dT, up width) float32 tensors of 134 MB (21 of
+# them on the card, PR 23).  A form that kept every chunk's state would
+# grow by at least three copies of dT / chunk states of one layer (6.4 GB
+# here) more.  The check fails above LONG_PREFILL_GROWTH such activations
+# (5.4 GB).
+LONG_PREFILL = (4, (2048, 4096))
+LONG_PREFILL_GROWTH = 40
+
+
+def xlstm_long_prefill(cfg, params):
+    """[4n] The family's ``prefill`` of B=4 seeded prompts of 2048 and of
+    4096 tokens at the phase's depth, with no grad: each one's ms and
+    peak device memory above what was allocated before it.  Fails where
+    the peak grows from the shorter to the longer by more than
+    ``LONG_PREFILL_GROWTH`` (B, dT, up width) float32 tensors, or on
+    logits that are not finite."""
+    import torch
+    from repro_torch.models import registry, xlstm
+    b, lengths = LONG_PREFILL
+    fam = registry.get_family(cfg)
+    runs = {}
+    for t in lengths:
+        g = torch.Generator("cuda").manual_seed(31)
+        tokens = torch.randint(2, cfg.vocab_size, (b, t), generator=g,
+                               device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = fam.prefill(params, cfg, tokens)
+        torch.cuda.synchronize()
+        runs[t] = dict(ms=(time.perf_counter() - t0) * 1e3, peak_gb=(
+            torch.cuda.max_memory_allocated() - base) / 1e9,
+            finite=bool(torch.isfinite(logits.float()).all()))
+        del logits, cache, tokens
+        _free()
+    (t1, r1), (t2, r2) = runs.items()
+    act_gb = b * (t2 - t1) * xlstm._ud(cfg) * 4 / 1e9
+    limit = LONG_PREFILL_GROWTH * act_gb
+    growth = r2["peak_gb"] - r1["peak_gb"]
+    log("  " + json.dumps(dict(xlstm_long_prefill=dict(
+        B=b, layers=cfg.n_layers, runs=runs, growth_gb=growth,
+        limit_gb=limit))))
+    if growth > limit or not all(r["finite"] for r in runs.values()):
+        raise AssertionError(f"xlstm prefill peak grew {growth:.2f} GB "
+                             f"from {t1} to {t2} tokens (limit {limit:.2f})"
+                             f", finite logits "
+                             f"{[r['finite'] for r in runs.values()]}")
 
 
 def phase_whisper():
@@ -2975,16 +3036,39 @@ def phase_gametheory() -> dict:
 # beside 52.0 GB of state and embed's 10 GB AdamW update
 MESH_BATCH, MESH_PROMPT, MESH_STEPS = 4, 512, 8
 MESH_REL = 1e-3            # of max|logit|, and the first loss relative
+# [9a, the hybrid, ssm and audio families]: each at its published widths
+# in bf16 on the same mesh against its unsharded steps, on the port's
+# seeded init with perturbed biases and norms: (arch, prompt tokens,
+# layers of the train step, None for all).  recurrentgemma-9b's 2100
+# tokens wrap its 2048-position ring (2100 % 2048 = 52); its train step is
+# cut to 8 of 38 layers by phase 7's rule (12 B a parameter: its 10.4 B
+# parameters need 125 GB whole, 8 layers 3.9 B and 46.6 GB before the
+# activations and the embeddings' AdamW update: 63.5 GB peak); xlstm-1.3b
+# trains 16 of 48 layers (two 7:1 groups), as at 48 the float32 mLSTM
+# states and sLSTM steps autograd keeps ran the card out of memory in the
+# forward; whisper-base prompts 32 tokens over 1500 frames
+MESH_FAMILIES = (("recurrentgemma-9b", 2100, 8), ("xlstm-1.3b", 512, 16),
+                 ("whisper-base", 32, None))
 # the sequence-sharded decode's plain fp32 partials against row 4 (bf16)
 MOE_A2A_ATOL = 2e-2        # granite-moe layer, bf16, DTensor vs plain
 # [9b]: the dry run on the H100 cluster's mesh of fake ranks
-DRYRUN_CASES = (("qwen3-8b", "train_4k", False),
+# the cases run in DRYRUN_WORKERS spawned processes on the card's host (8
+# cores), started in this order, the slowest alone first: xlstm-1.3b
+# train_4k's chunk loop (16 chunks of 256 a layer, forward and backward,
+# on fake tensors) takes about as long as all the others together
+DRYRUN_CASES = (("xlstm-1.3b", "train_4k", False),
+                ("recurrentgemma-9b", "train_4k", False),
+                ("dbrx-132b", "train_4k", False),
+                ("xlstm-1.3b", "long_500k", False),
+                ("qwen3-8b", "train_4k", False),
                 ("qwen3-8b", "prefill_32k", False),
                 ("qwen3-8b", "decode_32k", False),
                 ("qwen3-8b", "long_500k", False),
                 ("granite-moe-1b-a400m", "train_4k", False),
-                ("dbrx-132b", "train_4k", False),
-                ("qwen3-8b", "train_4k", True))
+                ("qwen3-8b", "train_4k", True),
+                ("recurrentgemma-9b", "long_500k", False),
+                ("whisper-base", "train_4k", False))
+DRYRUN_WORKERS = 4
 
 
 def _tree_map(fn, t):
@@ -2998,11 +3082,12 @@ def _full(t):
 
 
 def _mesh_serve(cfg, params, batch, mesh, seq_shard=False, forced=None):
-    """The prefill step and ``MESH_STEPS`` greedy serve steps, plain
-    (``mesh`` None) or on DTensors sharded by ``launch.sharding``:
-    (prefill logits, the steps' logits, their tokens, launches of each).
-    With ``forced`` (MESH_STEPS, B, 1) tokens, step i+1 takes
-    ``forced[i]`` in place of its own greedy token."""
+    """The prefill step and ``MESH_STEPS`` greedy serve steps on a cache
+    of the prompt's length plus ``MESH_STEPS``, plain (``mesh`` None) or
+    on DTensors sharded by ``launch.sharding``: (prefill logits, the
+    steps' logits, their tokens, launches of each, the steps' merges of
+    split decodes).  With ``forced`` (MESH_STEPS, B, 1) tokens, step i+1
+    takes ``forced[i]`` in place of its own greedy token."""
     import torch
     from repro_torch.compat import meshenv
     from repro_torch.configs import _InputShape
@@ -3010,7 +3095,7 @@ def _mesh_serve(cfg, params, batch, mesh, seq_shard=False, forced=None):
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
     from repro_torch.models import runtime
-    cap = MESH_PROMPT + MESH_STEPS
+    cap = batch["tokens"].shape[1] + MESH_STEPS
     shp = _InputShape("mesh", cap, MESH_BATCH, "prefill")
 
     def put(tree, specs):
@@ -3043,9 +3128,10 @@ def _mesh_serve(cfg, params, batch, mesh, seq_shard=False, forced=None):
             tok = toks[-1] if forced is None else forced[len(toks) - 1]
         torch.cuda.synchronize()
         serve_launches = ops.launch_counts()
+        merges = ops.merge_launches()
     del cache, dp
     return (prefill, torch.stack(logits), torch.stack(toks),
-            prefill_launches, serve_launches)
+            prefill_launches, serve_launches, merges)
 
 
 def _rel_err(got, want) -> float:
@@ -3133,6 +3219,103 @@ def _moe_layer_case(mesh) -> dict:
                 aux_abs_err=aux_err)
 
 
+def _family_rows(cfg) -> tuple:
+    """Row 1's launches in a prefill (or a train step's forward) and row
+    4's in a serve step of ``cfg``'s path: one each a local-attention
+    layer (hybrid); an encoder layer, then a causal and a cross attention
+    a decoder layer, two decodes a decoder layer (audio); none (ssm)."""
+    from repro_torch.models import rglru
+    if cfg.family == "hybrid":
+        n_groups, tail = rglru.group_structure(cfg)
+        n = (n_groups * rglru.block_pattern(cfg).count("attn")
+             + tail.count("attn"))
+        return n, n
+    if cfg.family == "audio":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return 0, 0
+
+
+def _mesh_family(arch, prompt, train_layers, mesh) -> dict:
+    """[9a] ``arch`` at its published widths in bf16: the prefill of
+    ``MESH_BATCH`` prompts of ``prompt`` tokens (and whisper's frames),
+    ``MESH_STEPS`` serve steps and a train step at ``train_layers``
+    layers, each on ``mesh`` against the same step unsharded: logits
+    within ``MESH_REL`` of max|logit|, tokens equal, the first loss within
+    ``MESH_REL``; rows 1 and 4 launched as often on both paths as the
+    config's path says (``_family_rows``), the split decodes' merges as
+    often on both, whisper's cross decodes splitting; the train peak
+    leaving ``MIN_FREE_BYTES``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(arch).replace(dtype="bfloat16")
+    params = perturb(serve.seeded_params(0, cfg, dev), 1)
+    g = torch.Generator(dev).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (MESH_BATCH, prompt),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["encoder_embeds"] = torch.randn(
+            MESH_BATCH, cfg.encoder_seq, cfg.d_model, generator=g,
+            device=dev).to(torch.bfloat16)
+    want = _mesh_serve(cfg, params, batch, None)
+    got = _mesh_serve(cfg, params, batch, mesh)
+    del params
+    _free()
+    row1, row4 = _family_rows(cfg)
+    zero = dict.fromkeys(want[3], 0)
+    want_pl = {**zero, "flash_attention": row1}
+    want_sl = {**zero, "flash_decode": row4 * MESH_STEPS}
+    r = dict(prefill_rel=_rel_err(got[0], want[0]),
+             serve_rel=_rel_err(got[1], want[1]),
+             prefill_bit_equal=bool(torch.equal(got[0], want[0])),
+             serve_bit_equal=bool(torch.equal(got[1], want[1])),
+             tokens_equal=bool(torch.equal(got[2], want[2])),
+             prefill_launches=got[3], serve_launches=got[4],
+             merges=got[5], prompt=prompt, layers=cfg.n_layers)
+    if not (r["prefill_rel"] <= MESH_REL and r["serve_rel"] <= MESH_REL
+            and r["tokens_equal"]):
+        raise AssertionError(f"mesh {arch}: {r}")
+    if not (got[3] == want[3] == want_pl and got[4] == want[4] == want_sl
+            and got[5] == want[5]
+            and (got[5] > 0 or cfg.family != "audio")):
+        raise AssertionError(
+            f"mesh {arch} launches: prefill {got[3]} / {want[3]}, serve "
+            f"{got[4]} / {want[4]}, merges {got[5]} / {want[5]}; want "
+            f"{want_pl}, {want_sl}")
+    tcfg = cfg if train_layers is None else cfg.replace(n_layers=train_layers)
+    plain_met, plain_launches, plain_peak = _mesh_train(tcfg, None)
+    met, launches, peak = _mesh_train(tcfg, mesh)
+    total = torch.cuda.get_device_properties(0).total_memory
+    rel = abs(met["loss"] - plain_met["loss"]) / abs(plain_met["loss"])
+    want_tl = {**zero, "flash_attention": _family_rows(tcfg)[0]}
+    if not (rel <= MESH_REL and launches == want_tl == plain_launches
+            and total - peak >= MIN_FREE_BYTES):
+        raise AssertionError(
+            f"mesh {arch} train: loss {met['loss']} vs {plain_met['loss']}, "
+            f"launches {launches} / {plain_launches} (want {want_tl}), "
+            f"peak {peak / 1e9:.1f} of {total / 1e9:.1f} GB")
+    r["train"] = dict(layers=tcfg.n_layers, microbatches=1,
+                      loss=met["loss"], loss_plain=plain_met["loss"],
+                      loss_rel=rel, grad_norm=met["grad_norm"],
+                      grad_norm_plain=plain_met["grad_norm"],
+                      loss_bit_equal=met["loss"] == plain_met["loss"],
+                      launches=launches, peak_gb=peak / 1e9,
+                      peak_plain_gb=plain_peak / 1e9)
+    r["wall_s"] = time.perf_counter() - t0
+    log(f"  {arch}: prefill {r['prefill_rel']:.3g} of max|logit| (bit-equal "
+        f"{r['prefill_bit_equal']}), serve {r['serve_rel']:.3g} (bit-equal "
+        f"{r['serve_bit_equal']}), tokens equal; launches prefill "
+        f"{got[3]['flash_attention']}, serve {got[4]['flash_decode']}, "
+        f"merges {got[5]}; train ({tcfg.n_layers} layers) loss "
+        f"{met['loss']:.6f} vs {plain_met['loss']:.6f} ({rel:.3g}), peak "
+        f"{peak / 1e9:.1f} GB (plain {plain_peak / 1e9:.1f}), row 1 "
+        f"{launches['flash_attention']}; {r['wall_s']:.1f}s")
+    return r
+
+
 def phase_mesh_host() -> dict:
     """[9a] The mesh layer's steps on the card's one-rank NCCL (1, 1) host
     mesh (``launch.make_host_mesh``), each held to the unsharded step on
@@ -3149,7 +3332,9 @@ def phase_mesh_host() -> dict:
     engines.
     Row 1 must launch once a layer and prefill (train: a layer and
     microbatch), row 4 once a layer and serve step, on both paths, no
-    other port kernel; no row 4 under ``decode_seq_shard``."""
+    other port kernel; no row 4 under ``decode_seq_shard``.  Then the
+    hybrid, ssm and audio families (``MESH_FAMILIES``,
+    ``_mesh_family``)."""
     import torch
     from repro_torch.compat import meshenv
     from repro_torch.configs import get_config
@@ -3182,7 +3367,7 @@ def phase_mesh_host() -> dict:
                                                 forced=want32[2]), want32)]
         del params32
         zero = dict.fromkeys(want[3], 0)
-        for name, (pre, logits, toks, pl, sl), ref in runs:
+        for name, (pre, logits, toks, pl, sl, _), ref in runs:
             r = dict(prefill_rel=_rel_err(pre, ref[0]),
                      serve_rel=_rel_err(logits, ref[1]),
                      prefill_bit_equal=bool(torch.equal(pre, ref[0])),
@@ -3234,23 +3419,50 @@ def phase_mesh_host() -> dict:
             f"launches {launches}")
         out["moe_layer"] = _moe_layer_case(mesh)
         log(f"  granite-moe layer under moe_a2a: {out['moe_layer']}")
+        _free()
+        for arch, prompt, train_layers in MESH_FAMILIES:
+            out[arch] = _mesh_family(arch, prompt, train_layers, mesh)
+            _free()
     log("mesh_host " + json.dumps(out))
     return out
 
 
+def _dryrun_case(case) -> dict:
+    """One of ``DRYRUN_CASES`` in a worker process: its report."""
+    from repro_torch.launch.dryrun import lower_one
+    arch, shape, multi_pod = case
+    t0 = time.perf_counter()
+    rep = lower_one(arch, shape, multi_pod=multi_pod, device="cuda")
+    rep["wall_s"] = round(time.perf_counter() - t0, 1)
+    return rep
+
+
 def phase_mesh_dryrun() -> list:
     """[9b] ``launch.dryrun.lower_one`` on the H100 cluster's mesh of fake
-    ranks, fake tensors on the card: each of ``DRYRUN_CASES``, its report
-    on a line of its own; a report with an error fails the phase."""
-    from repro_torch.launch.dryrun import lower_one
-    reports = []
-    for arch, shape, multi_pod in DRYRUN_CASES:
-        t0 = time.perf_counter()
-        rep = lower_one(arch, shape, multi_pod=multi_pod, device="cuda")
-        rep["wall_s"] = round(time.perf_counter() - t0, 1)
+    ranks, fake tensors on the card: ``DRYRUN_CASES`` in
+    ``DRYRUN_WORKERS`` spawned processes (each builds its own fake process
+    group), each report on a line of its own.  A case that raises fails
+    the phase; the pool's processes end with it."""
+    import concurrent.futures
+    import multiprocessing
+    with concurrent.futures.ProcessPoolExecutor(
+            DRYRUN_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        reports = list(pool.map(_dryrun_case, DRYRUN_CASES))
+    for rep in reports:
         log("dryrun " + json.dumps(rep))
-        reports.append(rep)
     return reports
+
+
+def _mesh_entry(mesh: dict, kernel: str, d: int) -> dict:
+    """Phase 9a's launches of ``kernel`` at head width ``d``: in the
+    prefill, the serve steps and the train step of the arch whose mesh
+    path runs it at that width."""
+    arch = {128: "qwen3-8b", 256: "recurrentgemma-9b", 64: "whisper-base"}[d]
+    r = mesh[arch] if d != 128 else dict(mesh["mesh"], train=mesh["train"])
+    return dict(arch=arch, prefill=r["prefill_launches"][kernel],
+                serve=r["serve_launches"][kernel],
+                train=r["train"]["launches"][kernel])
 
 
 def main() -> int:
@@ -3382,12 +3594,11 @@ def main() -> int:
                    grads=sum(a["row1_launches"] for a in grads.values()),
                    train_small=small["launches"]["flash_attention"])}
                if entry == "flash_attention_d64" else {}),
-            # the mesh layer's steps on the card's (1, 1) host mesh (9a)
-            **({"mesh": dict(
-                prefill=mesh["mesh"]["prefill_launches"][kernel],
-                serve=mesh["mesh"]["serve_launches"][kernel],
-                train=mesh["train"]["launches"][kernel])}
-               if entry in ("flash_attention", "flash_decode") else {}),
+            # the mesh layer's steps on the card's (1, 1) host mesh (9a):
+            # qwen3-8b at D=128, recurrentgemma-9b at D=256, whisper-base
+            # at D=64 rep 1
+            **({"mesh": _mesh_entry(mesh, kernel, d)}
+               if kernel in ("flash_attention", "flash_decode") else {}),
             # the new configs' serve phases that run it, each with its
             # launches there and its times at that phase's shapes
             arch_phases={

@@ -27,6 +27,10 @@ a mesh dim name, or a tuple of names in mesh order (``("pod", "data")``).
   always replicated.
 * ``with_sharding_constraint(x, spec)``: ``x.redistribute`` to the spec's
   placements; a no-op on a plain tensor or with no mesh.
+* ``to_local(t, mesh, dims)`` / ``from_local(out, like, dims)``: a
+  tensor's local shard laid out by ``dims``, and back to a DTensor: the
+  bracket around code that runs on each rank's plain tensors (the
+  kernels, the recurrent cells).
 * ``shard_offset(x, dim)``: where this rank's shard of a DTensor starts
   along ``dim``.
 * ``abstract_mode()``: the active ``FakeTensorMode`` or a new one, for
@@ -157,6 +161,30 @@ def placed(mesh: DeviceMesh, dims: Dict[str, int]):
     dim of global size 1."""
     return [Shard(dims[n]) if n in dims and size > 1 else Replicate()
             for n, size in zip(mesh.mesh_dim_names, mesh.shape)]
+
+
+def to_local(t: torch.Tensor, mesh, shard_dims: Dict[str, int]
+             ) -> torch.Tensor:
+    """The local shard of ``t`` (a plain tensor counts as replicated)
+    redistributed to ``shard_dims`` (``placed``), contiguous: the input of
+    a function that runs on each rank's plain tensors."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    want = placed(mesh, shard_dims)
+    if list(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    return t.to_local().contiguous()
+
+
+def from_local(out: torch.Tensor, like: DTensor,
+               shard_dims: Dict[str, int]) -> DTensor:
+    """``out``, this rank's shard of a tensor shaped as ``like``, as a
+    contiguous DTensor placed by ``shard_dims`` (its shards even)."""
+    mesh = like.device_mesh
+    return DTensor.from_local(out.contiguous(), mesh,
+                              placed(mesh, shard_dims),
+                              run_check=False)
 
 
 def placements(spec, mesh: DeviceMesh):

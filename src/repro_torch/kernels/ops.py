@@ -44,7 +44,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor
 
 from repro_torch.compat import meshenv
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
@@ -145,29 +145,6 @@ def _attention_dims(mesh, b: int, heads) -> Dict[str, int]:
     return dims
 
 
-def _to_local(t: torch.Tensor, mesh, shard_dims: Dict[str, int]
-              ) -> torch.Tensor:
-    """The local shard of ``t`` (a plain tensor counts as replicated)
-    redistributed to ``shard_dims``, contiguous."""
-    if not isinstance(t, DTensor):
-        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                               run_check=False)
-    want = meshenv.placed(mesh, shard_dims)
-    if list(t.placements) != want:
-        t = t.redistribute(mesh, want)
-    return t.to_local().contiguous()
-
-
-def _from_local(out: torch.Tensor, like: DTensor,
-                shard_dims: Dict[str, int]) -> DTensor:
-    """``out``, this rank's shard of a tensor shaped as ``like``, as a
-    contiguous DTensor placed by ``shard_dims`` (its shards even)."""
-    mesh = like.device_mesh
-    return DTensor.from_local(out.contiguous(), mesh,
-                              meshenv.placed(mesh, shard_dims),
-                              run_check=False)
-
-
 def _needs_grad(tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -192,9 +169,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if isinstance(q, DTensor):
         mesh = q.device_mesh
         dims = _attention_dims(mesh, q.shape[0], (q.shape[2], k.shape[2]))
-        out = attention(*(_to_local(t, mesh, dims) for t in (q, k, v)),
+        out = attention(*(meshenv.to_local(t, mesh, dims)
+                          for t in (q, k, v)),
                         causal=causal, window=window)
-        return _from_local(out, q, dims)
+        return meshenv.from_local(out, q, dims)
     if _abstract(q):
         if _needs_grad((q, k, v)):
             # as FlashAttentionFn: keep q, k, v and recompute in backward
@@ -233,10 +211,11 @@ def decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         mesh = q.device_mesh
         dims = _attention_dims(mesh, q.shape[0],
                                (q.shape[2], k_cache.shape[2]))
-        local = [_to_local(t, mesh, dims) for t in (q, k_cache, v_cache)]
-        lens = _to_local(lengths, mesh,
-                         {a: 0 for a, d in dims.items() if d == 0})
-        return _from_local(decode(*local, lens, window=window), q, dims)
+        local = [meshenv.to_local(t, mesh, dims)
+                 for t in (q, k_cache, v_cache)]
+        lens = meshenv.to_local(lengths, mesh,
+                                {a: 0 for a, d in dims.items() if d == 0})
+        return meshenv.from_local(decode(*local, lens, window=window), q, dims)
     if _abstract(q):
         return _abstract_call("flash_decode", decode_ref, q, k_cache,
                               v_cache, lengths, window=window)

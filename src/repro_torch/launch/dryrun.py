@@ -35,13 +35,14 @@ stack as the reference extrapolates its roofline: ``output_bytes`` (the
 outputs' shards), ``temp_bytes`` (the peak that ``MemTracker`` sees
 allocated during a second run, ``None`` where it cannot follow one; a kernel's
 plain version allocates what the kernel would not, such as a prefill's
-(B, H, S, S) scores, so this bounds the card's from above),
+(B, H, S, S) scores, so this bounds the card's from above; the sLSTM
+takes its parallel surrogate here too, whose (B, T, d) temporaries stand
+for the loop's per-step ones),
 ``peak_bytes`` (temp plus arguments, as the reference adds them), and
 the roofline's counts, taken with one microbatch as the reference's
 are, against the H100 constants of ``launch.mesh``.
 
-The hybrid, ssm and audio families raise ``NotImplementedError`` here
-(ROADMAP Queue A item 10).  Perf variants with no counterpart in the
+Perf variants with no counterpart in the
 port (``qchunk*``, ``skip_blocks``) are accepted and listed under
 ``"no_counterpart"``; ``donate`` is the port's default, its caches
 updating in place.
@@ -68,9 +69,8 @@ from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import (_HBM_BW, _NVLINK_BW, _PEAK_FLOPS_BF16,
                                      make_production_mesh)
 from repro_torch.launch.specs import input_specs, n_groups_of, reduced_depth
-from repro_torch.launch.steps import (_MESH_FAMILIES, build_prefill_step,
-                                      build_serve_step, build_train_step,
-                                      microbatches_for)
+from repro_torch.launch.steps import (build_prefill_step, build_serve_step,
+                                      build_train_step, microbatches_for)
 from repro_torch.models import runtime
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -260,7 +260,11 @@ def _run(arch: str, shape_name: str, mesh, kw: Dict, device: str, fake, *,
     _, _, step, args, flags = _setup(arch, shape_name, mesh, kw, device,
                                      fake, roofline=roofline,
                                      k_groups=k_groups)
-    ctx = runtime.roofline_lowering() if roofline else contextlib.nullcontext()
+    # the sLSTM's loop of T steps, even on each rank's fake local tensors,
+    # keeps xlstm-1.3b's train_4k over 30 minutes on a CPU: the memory
+    # runs take its surrogate too (temp bytes: the surrogate's)
+    ctx = (runtime.roofline_lowering() if roofline
+           else runtime.surrogate_slstm())
     with runtime.perf_flags(**flags), ctx, meshenv.mesh_context(mesh):
         if counter is None:
             step(*args)
@@ -298,11 +302,6 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     (with one microbatch, as the reference's) are skipped for
     ``multi_pod`` unless ``with_roofline``."""
     base = get_config(arch, shape_name)
-    if base.family not in _MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{arch}: the {base.family} family has no steps under a mesh "
-            f"yet (ROADMAP Queue A item 10, the hybrid, ssm and audio "
-            f"families)")
     kw = _parse_variant(perf_variant)
     n_dev = 512 if multi_pod else 256
     if with_roofline is None:

@@ -5,7 +5,8 @@ Port of ``repro.launch.sharding``; the rules are pure functions of
 leaf.  A spec is a tuple with one entry per tensor dim (``()`` is the
 reference's ``P()``), each ``None``, a mesh axis name or a tuple of
 names; ``placements`` turns it into DTensor placements on a mesh and
-``distribute`` a tree of tensors into DTensors.  A ``mesh`` argument is a
+``distribute`` a tree of tensors into DTensors (``gather`` makes them
+whole again).  A ``mesh`` argument is a
 ``DeviceMesh`` or a ``{axis_name: extent}`` dict in mesh order.
 
 Scheme (the reference's baseline):
@@ -113,10 +114,15 @@ def _drop_data(spec: Tuple) -> Tuple:
 
 
 def _map_paths(fn, tree, prefix: str = ""):
-    """``fn(path, leaf)`` over a nested dict, keeping its structure."""
+    """``fn(path, leaf)`` over nested dicts and lists (a list's index is
+    its path component, as the reference's ``idx`` is: the hybrid and
+    ssm caches' ``tail/0/h``), keeping the structure."""
     if isinstance(tree, dict):
         return {k: _map_paths(fn, v, f"{prefix}{k}/") for k, v in
                 tree.items()}
+    if isinstance(tree, list):
+        return [_map_paths(fn, v, f"{prefix}{i}/") for i, v in
+                enumerate(tree)]
     return fn(prefix[:-1], tree)
 
 
@@ -182,6 +188,8 @@ def distribute(tree, specs, mesh):
     gives up; a smaller one is a contiguous copy."""
     if isinstance(tree, dict):
         return {k: distribute(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [distribute(v, s, mesh) for v, s in zip(tree, specs)]
     pl = placements(specs, mesh)
     coord = mesh.get_coordinate()
     local = tree
@@ -191,3 +199,9 @@ def distribute(tree, specs, mesh):
     return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
                               shape=tree.shape, stride=tree.stride())
 
+
+def gather(tree):
+    """The whole tensors of a tree of DTensors (dicts and lists), plain
+    tensors as they are: every rank gets every leaf in full."""
+    return _map_paths(lambda _, leaf: leaf.full_tensor()
+                      if isinstance(leaf, DTensor) else leaf, tree)

@@ -1,17 +1,18 @@
 """Step builders for the dry run and the launchers: the train step, the
 prefill step and the serve step (one decode token), per architecture.
 
-Port of ``repro.launch.steps``.  The reference's XLA chunk arguments
-(``q_chunk``, ``kv_chunk``, ``skip_masked_blocks``, xlstm's ``chunk``)
-are accepted and dropped: the port's families take none, as
-``make_train_step`` already drops them.
+Port of ``repro.launch.steps``.  The ssm family's mLSTM runs in chunks
+of 256, as the reference's steps set it (the chunk sets the intra-chunk
+FLOPs and temporaries the dry run counts).  The reference's attention
+chunk arguments (``q_chunk``, ``kv_chunk``, ``skip_masked_blocks``) are
+XLA settings the port has no counterpart for (the kernels tile on the
+card): accepted and dropped.
 
-Under a mesh (``compat.meshenv.mesh_context``) the steps take DTensors
-sharded by ``launch.sharding`` -- the state or params, the batch, the
-cache -- and run the same code; the prefill step lays its cache out by
-the cache specs, as the reference's ``out_shardings`` do.  The mesh
-covers the dense, vlm and moe families; the hybrid, ssm and audio
-families raise ``NotImplementedError`` under a mesh.
+Under a mesh (``compat.meshenv.mesh_context``) the steps of every family
+take DTensors sharded by ``launch.sharding`` -- the state or params, the
+batch, the cache -- and run the same code; the prefill step lays its
+cache out by the cache specs, nested groups and tail lists included, as
+the reference's ``out_shardings`` do.
 """
 
 from __future__ import annotations
@@ -33,19 +34,13 @@ _TRAIN_MICROBATCHES = {
     "qwen2-vl-7b": 4, "granite-moe-1b-a400m": 2, "xlstm-1.3b": 2,
     "whisper-base": 1,
 }
-# the families whose steps run under a mesh
-_MESH_FAMILIES = ("dense", "vlm", "moe")
+# the ssm family's mLSTM chunk in every step (reference steps.py)
+_SSM_CHUNK = 256
 
 
-def check_mesh_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` when a mesh is active and ``cfg``'s
-    family has no sharded steps yet."""
-    if meshenv.current_mesh() is not None and \
-            cfg.family not in _MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family has no steps under a mesh "
-            f"yet (ROADMAP Queue A item 10, the hybrid, ssm and audio "
-            f"families)")
+def _apply_kw(cfg: ModelConfig) -> dict:
+    """The family's own chunk argument: xlstm's ``chunk``, else none."""
+    return {"chunk": _SSM_CHUNK} if cfg.family == "ssm" else {}
 
 
 def microbatches_for(cfg: ModelConfig, shape: _InputShape, mesh=None
@@ -75,14 +70,12 @@ def build_train_step(cfg: ModelConfig, shape: _InputShape,
     defaults and ``microbatches``, or else the architecture's count
     under the mesh the step runs in (``microbatches_for``)."""
     del q_chunk, kv_chunk, skip_masked_blocks
-    check_mesh_family(cfg)
 
     def train_step(state, batch):
-        check_mesh_family(cfg)
         n = microbatches or microbatches_for(cfg, shape,
                                              meshenv.current_mesh())
-        return make_train_step(cfg, AdamWConfig(), microbatches=n)(
-            state, batch)
+        return make_train_step(cfg, AdamWConfig(), microbatches=n,
+                               **_apply_kw(cfg))(state, batch)
 
     return train_step
 
@@ -92,32 +85,37 @@ def build_prefill_step(cfg: ModelConfig, shape: _InputShape,
     """``prefill_step(params, batch) -> (logits, cache)`` with a cache of
     ``shape.seq_len`` positions."""
     del q_chunk, kv_chunk
-    check_mesh_family(cfg)
     fam = registry.get_family(cfg)
 
     def prefill_step(params, batch):
-        check_mesh_family(cfg)
         logits, cache = fam.prefill(params, cfg, batch,
-                                    capacity=shape.seq_len)
+                                    capacity=shape.seq_len,
+                                    **_apply_kw(cfg))
         mesh = meshenv.current_mesh()
         if mesh is not None:
-            specs = sharding.cache_shardings(cache, mesh)
-            cache = {k: meshenv.with_sharding_constraint(v, specs[k])
-                     for k, v in cache.items()}
+            cache = _constrain(cache, sharding.cache_shardings(cache, mesh))
         return logits, cache
 
     return prefill_step
+
+
+def _constrain(tree, specs):
+    """Each DTensor of ``tree`` (nested dicts and lists) laid out by its
+    spec in ``specs``, a tree of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _constrain(v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_constrain(v, s) for v, s in zip(tree, specs)]
+    return meshenv.with_sharding_constraint(tree, specs)
 
 
 def build_serve_step(cfg: ModelConfig, shape: _InputShape):
     """``serve_step(params, cache, token) -> (logits, cache)``: one decode
     token against a cache of ``shape.seq_len`` positions."""
     del shape
-    check_mesh_family(cfg)
     fam = registry.get_family(cfg)
 
     def serve_step(params, cache, token):
-        check_mesh_family(cfg)
         return fam.decode_step(params, cfg, cache, token)
 
     return serve_step

@@ -2,7 +2,10 @@
 
 Port of ``repro.models.common`` (norms, ``rope_freqs``/``apply_rope``,
 the vlm family's ``apply_mrope``, ``dense_init``/``embed_init``, and the
-logical sharding annotations ``logical``/``shard``).  Arithmetic runs in
+logical sharding annotations ``logical``/``shard``), with the port's own
+helpers for DTensor params and caches that several families share
+(``gathered``, ``used``, ``embed_rows``, ``copy_into``, ``flip0``,
+``project_out``).  Arithmetic runs in
 float32 and casts back to the input dtype, as in the reference.
 """
 
@@ -91,6 +94,43 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                          for p in rows])
     return DTensor.from_local(whole[tokens.to_local()], mesh, rows,
                               run_check=False)
+
+
+def used(tree: Dict) -> Dict:
+    """Params as they are used: under a mesh, FSDP-gathered
+    (``gathered``); plain tensors as they are."""
+    return {k: (used(v) if isinstance(v, dict) else gathered(v))
+            for k, v in tree.items()}
+
+
+def copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` in place, where ``dst`` may be a DTensor view of
+    a stacked cache: ``src`` is first laid out as ``dst`` is, so each
+    rank writes its own shard into the cache's storage."""
+    if isinstance(dst, DTensor):
+        mesh = dst.device_mesh
+        if not isinstance(src, DTensor):
+            src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+        if list(src.placements) != list(dst.placements):
+            src = src.redistribute(mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+        return
+    dst.copy_(src)
+
+
+def flip0(w: torch.Tensor) -> torch.Tensor:
+    """``w.flip(0)`` by a stack of its rows in reverse: DTensor has no
+    rule for ``flip`` in torch 2.11."""
+    return torch.stack([w[i] for i in reversed(range(w.shape[0]))])
+
+
+def project_out(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A block's output projection back to the residual stream; under a
+    mesh its partial sums over ``model`` are summed here, where the
+    reference's GSPMD sums them (left partial, DTensor would carry them
+    into the next norm)."""
+    return shard(a @ w, "batch", "seq", None)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -327,19 +327,28 @@ def _cache_of(kvs: Dict[str, list], cap: int, s: int,
     cache of ``cap`` positions: zero-padded past ``s``, or, when ``cap <=
     s``, the last ``cap`` positions ring-rotated so that position p sits
     at slot p % cap; plus "length": s."""
-    def ring(a: torch.Tensor) -> torch.Tensor:
+    def layout(a: torch.Tensor) -> torch.Tensor:
         # (L, B, S, Hkv, dh) -> (L, B, cap, Hkv, dh)
         if cap <= s:
-            # no roll when s is a multiple of cap: a DTensor has no roll
-            # rule in some torch releases
-            tail = a[:, :, -cap:]
-            return (torch.roll(tail, shifts=s % cap, dims=2) if s % cap
-                    else tail.contiguous())
+            return ring(a, cap, s, 2)
         return F.pad(a, (0, 0, 0, 0, 0, cap - s))
 
-    cache = {name: ring(torch.stack(a)) for name, a in kvs.items()}
+    cache = {name: layout(torch.stack(a)) for name, a in kvs.items()}
     cache["length"] = torch.tensor(s, dtype=torch.int32, device=device)
     return cache
+
+
+def ring(a: torch.Tensor, cap: int, s: int, dim: int) -> torch.Tensor:
+    """The last ``cap`` of the ``s`` positions of ``a`` along ``dim``,
+    rotated so that position p sits at slot ``p % cap``: two slices and
+    one ``cat``, the ``roll`` of the reference (a DTensor has no roll
+    rule in some torch releases)."""
+    tail = a.narrow(dim, s - cap, cap)
+    r = s % cap
+    if not r:
+        return tail.contiguous()
+    return torch.cat([tail.narrow(dim, cap - r, r),
+                      tail.narrow(dim, 0, cap - r)], dim=dim)
 
 
 # ---------------------------------------------------------------- slot decode

@@ -77,12 +77,13 @@ def apply_logits(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     return out[0] if fam.has_aux else out
 
 
-def apply_with_aux(params, cfg: ModelConfig, batch: Dict
+def apply_with_aux(params, cfg: ModelConfig, batch: Dict, **kw
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward returning (logits, aux loss); a family without
-    an aux loss returns a float32 zero."""
+    an aux loss returns a float32 zero.  ``kw`` goes to the family's
+    ``apply`` (xlstm's ``chunk``)."""
     fam = get_family(cfg)
-    out = fam.apply(params, cfg, batch)
+    out = fam.apply(params, cfg, batch, **kw)
     if fam.has_aux:
         return out
     return out, torch.zeros((), dtype=torch.float32, device=out.device)

@@ -9,10 +9,12 @@ two-layer recurrent tail.  The RG-LRU is a gated linear recurrence
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t),
     a_t = exp(-c * softplus(lam) * r_t),  r_t, i_t input-dependent sigmoids,
 
-with its gates and state in float32 whatever ``cfg.dtype`` is.  The
-reference scans it with ``jax.lax.associative_scan``; no TPU kernel
-computes it, and here it is a sequential loop over time in PyTorch
-(``rglru_scan``) and a single-step update at decode (``rglru_step``).
+with its gates and state in float32 whatever ``cfg.dtype`` is.  No TPU
+kernel computes it: over a sequence ``rglru_scan`` takes the reference's
+form, a port of ``jax.lax.associative_scan``'s odd-even recursion with
+the reference's combine (log depth in T; ``rglru_scan_sequential``, the
+loop over time, is its plain version), and at decode ``rglru_step`` is a
+single-step update.
 
 The local-attention blocks run the prefill kernel (causal, window
 ``cfg.local_window``) and, at decode, the contiguous decode kernel over a
@@ -30,6 +32,16 @@ params stacked on a leading ``n_groups`` axis under ``groups.blk{i}`` /
 with ``h`` (B, W) float32, ``conv`` the last ``conv_width - 1`` recurrent
 inputs (B, cw - 1, W) and the ring K/V (B, cap, Hkv, dh).  Unlike the
 reference, ``decode_step`` updates the cache's tensors in place.
+
+Under a mesh the params, batch and cache may be DTensors sharded by
+``launch.sharding``: the reference's ``cm.shard`` sites sit at the same
+places (the attention's q, the MLP's gate and up projections), each
+output projection's partial sums over ``model`` are summed before the
+residual (as ``dense`` does), the weights are FSDP-gathered on use, the
+decode's embeddings are looked up on each rank's rows, the ring is built
+without ``roll`` and written shard by shard (``dense._write_slots``), and
+the recurrent states are copied back in their own placements
+(``common.copy_into``).
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
@@ -160,11 +173,14 @@ def _index(tree: Dict, g: int) -> Dict:
 def _causal_conv(u: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv: ``out_t = sum_j w[j] * u_{t-j} + b``.
-    u: (B, T, W); w: (cw, W); b: (W,)."""
+    u: (B, T, W); w: (cw, W); b: (W,).  u shifted j steps is a ``cat`` of
+    j zero rows and u's first T - j (``F.pad`` of a DTensor at the start
+    of a dim, then a slice, keeps the padded length in torch 2.11)."""
     t = u.shape[1]
     out = torch.zeros_like(u)
-    for j in range(w.shape[0]):
-        shifted = F.pad(u, (0, 0, j, 0))[:, :t]
+    for j in range(min(w.shape[0], t)):
+        shifted = (u if j == 0 else
+                   torch.cat([torch.zeros_like(u[:, :j]), u[:, :t - j]], 1))
         out = out + shifted * w[j]
     return out + b
 
@@ -182,16 +198,90 @@ def _rglru_gates(rp: Dict, u: torch.Tensor
     return a, beta * i * uf
 
 
+def _combine(lhs: Tuple[torch.Tensor, torch.Tensor],
+             rhs: Tuple[torch.Tensor, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's combine of two spans of ``h -> a h + b``: the
+    earlier ``lhs`` then ``rhs``."""
+    a1, b1 = lhs
+    a2, b2 = rhs
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """Slots 0, 2, 4, ... from ``even`` and 1, 3, ... from ``odd`` along
+    dim 1 (``even`` as long as ``odd`` or one longer): a stack and a
+    reshape, no strided write."""
+    n = odd.shape[1]
+    pairs = torch.stack([even[:, :n], odd], dim=2)
+    out = pairs.reshape(pairs.shape[0], 2 * n, *pairs.shape[3:])
+    return out if even.shape[1] == n else torch.cat([out, even[:, n:]], 1)
+
+
+def _associative_scan(a: torch.Tensor, b: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inclusive scan of ``_combine`` over dim 1, by the odd-even
+    recursion of ``jax.lax.associative_scan``: combine adjacent pairs,
+    scan the pairs, then fill in the even positions."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd = _associative_scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
+                                      (a[:, 1::2], b[:, 1::2])))
+    if n % 2 == 0:
+        even = _combine((odd[0][:, :-1], odd[1][:, :-1]),
+                        (a[:, 2::2], b[:, 2::2]))
+    else:
+        even = _combine(odd, (a[:, 2::2], b[:, 2::2]))
+    even = tuple(torch.cat([x[:, :1], e], dim=1)
+                 for x, e in zip((a, b), even))
+    return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
+
+
+def _scan_inputs(rp: Dict, u: torch.Tensor,
+                 h0: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence's (a, b) over time, float32, with ``h0`` folded into
+    the first step as ``b_0 + a_0 h0`` (reference ``rglru_scan``).  Under
+    a mesh the time axis is replicated (under ``seq_parallel`` it was
+    sharded) and the width lies over ``model``: the scan is elementwise
+    in the width and needs no collective."""
+    a, b = _rglru_gates(rp, u)
+    a = cm.shard(a, "batch", None, "model")
+    b = cm.shard(b, "batch", None, "model")
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]],
+                      dim=1)
+    return a, b
+
+
 def rglru_scan(rp: Dict, u: torch.Tensor, h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The recurrence over time, from ``h0`` (B, W) or zeros.  u: (B, T, W)
-    -> (h (B, T, W) in u's dtype, h_T (B, W) float32).  A sequential loop:
-    ``h_t = a_t * h_{t-1} + b_t`` in float32, the function the reference's
-    associative scan computes (it folds ``h0`` into ``b_0`` as
-    ``a_0 * h0``)."""
-    a, b = _rglru_gates(rp, u)
+    -> (h (B, T, W) in u's dtype, h_T (B, W) float32): ``h_t = a_t *
+    h_{t-1} + b_t`` in float32 by the reference's associative scan, in
+    log2(T) levels of elementwise ops."""
+    a, b = _scan_inputs(rp, u, h0)
+    if isinstance(b, DTensor):
+        # elementwise in the rows and the width: each rank scans its own
+        # shard, the time axis whole
+        mesh, pl = b.device_mesh, b.placements
+        h = DTensor.from_local(_associative_scan(
+            a.redistribute(mesh, pl).to_local(), b.to_local())[1], mesh, pl,
+            run_check=False)
+    else:
+        h = _associative_scan(a, b)[1]
+    return h.to(u.dtype), h[:, -1]
+
+
+def rglru_scan_sequential(rp: Dict, u: torch.Tensor,
+                          h0: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rglru_scan``'s plain version: the same recurrence, a loop over
+    time in float32."""
+    a, b = _scan_inputs(rp, u, h0)
     h = torch.empty_like(b)
-    prev = (torch.zeros_like(b[:, 0]) if h0 is None else h0.float())
+    prev = torch.zeros_like(b[:, 0])
     for t in range(b.shape[1]):
         prev = torch.addcmul(b[:, t], a[:, t], prev)
         h[:, t] = prev
@@ -221,15 +311,15 @@ def _rec_block(rp: Dict, cfg: ModelConfig, x: torch.Tensor,
         # cw - 1; hist[:, -1] is u_t and out_t = sum_j w[j] u_{t-j}, so the
         # kernel applies reversed over the history window
         hist = torch.cat([conv_state, u], dim=1)              # (B, cw, W)
-        conv = ((hist * rp["conv_w"].flip(0)).sum(dim=1, keepdim=True)
+        conv = ((hist * cm.flip0(rp["conv_w"])).sum(dim=1, keepdim=True)
                 + rp["conv_b"])
         h_new = rglru_step(rp, conv, h0)
-        out = (y * h_new[:, None].to(y.dtype)) @ rp["w_o"]
+        out = cm.project_out(y * h_new[:, None].to(y.dtype), rp["w_o"])
         return x + out, h_new, hist[:, 1:]
     conv = _causal_conv(u, rp["conv_w"], rp["conv_b"])
     rec, h_last = rglru_scan(rp, conv, h0)
-    out = (y * rec) @ rp["w_o"]
-    return x + out, h_last, u[:, -(cfg.conv_width - 1):]
+    return (x + cm.project_out(y * rec, rp["w_o"]), h_last,
+            u[:, -(cfg.conv_width - 1):])
 
 
 def _qkv(ap: Dict, cfg: ModelConfig, h: torch.Tensor,
@@ -237,7 +327,8 @@ def _qkv(ap: Dict, cfg: ModelConfig, h: torch.Tensor,
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """h: (B, S, d) -> roped q (B, S, H, dh), k/v (B, S, Hkv, dh)."""
     b, s, _ = h.shape
-    q = (h @ ap["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = cm.shard(h @ ap["wq"], "batch", None, "model").reshape(
+        b, s, cfg.n_heads, cfg.head_dim)
     k = (h @ ap["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = (h @ ap["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = cm.apply_rope(q, positions, cfg.rope_theta)
@@ -254,56 +345,59 @@ def _attn_block_train(ap: Dict, cfg: ModelConfig, x: torch.Tensor,
     h = cm.apply_norm(x, ap["ln"], cfg.norm_type)
     q, k, v = _qkv(ap, cfg, h, positions)
     attn = ops.attention(q, k, v, causal=True, window=cfg.local_window)
-    return x + attn.reshape(b, s, cfg.q_dim) @ ap["wo"], k, v
+    return x + cm.project_out(attn.reshape(b, s, cfg.q_dim), ap["wo"]), k, v
 
 
 def _attn_block_decode(ap: Dict, cfg: ModelConfig, x: torch.Tensor,
                        kc: torch.Tensor, vc: torch.Tensor,
                        step: Tuple[torch.Tensor, ...]) -> torch.Tensor:
     """One token of local attention against the ring cache kc/vc
-    (B, cap, Hkv, dh), written in place at slot ``length % cap``, then
+    (B, cap, Hkv, dh), written in place at slot ``length % cap``
+    (``dense._write_slots``: a sharded ring shard by shard), then
     attending ``min(length + 1, cap)`` positions through the contiguous
-    decode kernel.  step: ``_ring_step``'s (positions, rows, slots, valid
+    decode kernel.  step: ``_ring_step``'s (positions, slots, valid
     counts)."""
     b = x.shape[0]
-    pos, rows, slot, n_valid = step
+    pos, slot, n_valid = step
     h = cm.apply_norm(x, ap["ln"], cfg.norm_type)
     q, k, v = _qkv(ap, cfg, h, pos)
-    kc.index_put_((rows, slot), k[:, 0])
-    vc.index_put_((rows, slot), v[:, 0])
+    dense._write_slots(kc, slot, k)
+    dense._write_slots(vc, slot, v)
     attn = ops.decode(q, kc, vc, n_valid)
-    return x + attn.reshape(b, 1, cfg.q_dim) @ ap["wo"]
+    return x + cm.project_out(attn.reshape(b, 1, cfg.q_dim), ap["wo"])
 
 
 def _ring_step(length: torch.Tensor, b: int, cap: int
                ) -> Tuple[torch.Tensor, ...]:
     """What every attention block of one decode step shares: the scalar
-    ``length`` broadcast to (B, 1) positions, the rows, each row's ring
-    slot ``length % cap`` and its (B,) int32 count of valid positions
+    ``length`` broadcast to (B, 1) positions, each row's ring slot
+    ``length % cap`` and its (B,) int32 count of valid positions
     ``min(length + 1, cap)``."""
     lens = length.long().reshape(-1).expand(b)
-    return (lens[:, None], torch.arange(b, device=length.device), lens % cap,
+    return (lens[:, None], lens % cap,
             torch.clamp(lens + 1, max=cap).to(torch.int32))
 
 
 def _mlp_block(mp: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Gated tanh-GeLU MLP with its residual."""
     h = cm.apply_norm(x, mp["ln"], cfg.norm_type)
-    return x + (cm.gelu(h @ mp["w_gate"]) * (h @ mp["w_up"])) @ mp["w_down"]
+    g = cm.shard(h @ mp["w_gate"], "batch", None, "model")
+    u = cm.shard(h @ mp["w_up"], "batch", None, "model")
+    return x + cm.project_out(cm.gelu(g) * u, mp["w_down"])
 
 
 def _blocks(params: Dict, cfg: ModelConfig):
     """Every block in order: (where, group index or None, i, kind, block
-    params, MLP params)."""
+    params, MLP params), the params as they are used (``common.used``)."""
     n_groups, tail = group_structure(cfg)
     pat = block_pattern(cfg)
     for g in range(n_groups):
-        gp = _index(params["groups"], g)
+        gp = cm.used(_index(params["groups"], g))
         for i, kind in enumerate(pat):
             yield "groups", g, i, kind, gp[f"blk{i}"], gp[f"mlp{i}"]
+    tp = cm.used(params["tail"])
     for i, kind in enumerate(tail):
-        yield ("tail", None, i, kind, params["tail"][f"blk{i}"],
-               params["tail"][f"mlp{i}"])
+        yield "tail", None, i, kind, tp[f"blk{i}"], tp[f"mlp{i}"]
 
 
 # ------------------------------------------------------------------ forward
@@ -328,8 +422,7 @@ def _forward(params: Dict, cfg: ModelConfig, inputs, want_cache: bool,
         else:
             x, k, v = _attn_block_train(bp, cfg, x, positions)
             if win <= s:    # the ring: position p at slot p % win
-                k = torch.roll(k[:, -win:], shifts=s % win, dims=1)
-                v = torch.roll(v[:, -win:], shifts=s % win, dims=1)
+                k, v = dense.ring(k, win, s, 1), dense.ring(v, win, s, 1)
             else:
                 k = F.pad(k, (0, 0, 0, 0, 0, win - s))
                 v = F.pad(v, (0, 0, 0, 0, 0, win - s))
@@ -368,7 +461,7 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     length, every block's state updated in place.  Returns (logits (B, 1,
     padded_vocab), the cache with length + 1)."""
     length = cache["length"]
-    x = params["embed"][token]
+    x = cm.embed_rows(params["embed"], token)
     step = None
     for where, g, i, kind, bp, mp in _blocks(params, cfg):
         st = (cache["tail"][i] if where == "tail"
@@ -377,8 +470,8 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
             x, h_new, conv_new = _rec_block(bp, cfg, x, h0=st["h"],
                                             conv_state=st["conv"],
                                             decode=True)
-            st["h"].copy_(h_new)
-            st["conv"].copy_(conv_new)
+            cm.copy_into(st["h"], h_new)
+            cm.copy_into(st["conv"], conv_new)
         else:
             if step is None:
                 step = _ring_step(length, token.shape[0], st["k"].shape[1])

@@ -8,11 +8,17 @@ model code consults them, set for a block with ``perf_flags`` or
   structural ``lax.scan`` loops under this flag because XLA's cost
   analysis counts a loop body once.  The port's loops are Python loops
   and the dry run's counting mode (``launch.dryrun``) sees every
-  iteration, so the only site with a counterpart is the sLSTM time
-  loop's parallel surrogate (reference ``models/xlstm.py``), which comes
-  with the ssm family's mesh slice.  The reference's ``scan_unroll`` and
-  ``attn_chunk`` have no counterpart: the port has no ``lax.scan`` and no
-  attention chunk loop (the kernels tile on the card).
+  iteration, so the sites with a counterpart are the xLSTM's two
+  (``models/xlstm.py``): the sLSTM time loop's parallel surrogate, and
+  the mLSTM's chunk raised to at least 1024.  The reference's
+  ``scan_unroll`` and ``attn_chunk`` have no counterpart: the port has no
+  ``lax.scan`` and no attention chunk loop (the kernels tile on the
+  card).
+* ``slstm_surrogate`` / ``surrogate_slstm``: the sLSTM's surrogate
+  alone, without the roofline's larger mLSTM chunk, for the dry run's
+  memory runs: its loop of T steps, even on each rank's local fake
+  tensors, keeps xlstm-1.3b's ``train_4k`` memory runs at over
+  30 minutes on a CPU.
 * The sharding variants: ``seq_parallel`` (the residual stream's sequence
   dim over ``model``, read by ``common.logical``), ``decode_seq_shard``
   (``attention.decode_attention_seqsharded``), ``attn_batch_only`` (no
@@ -53,6 +59,25 @@ def roofline_lowering():
         yield
     finally:
         _ROOFLINE.reset(tok)
+
+
+_SLSTM_SURROGATE: ContextVar[bool] = ContextVar(
+    "repro_torch_slstm_surrogate", default=False)
+
+
+def slstm_surrogate() -> bool:
+    """The sLSTM over a sequence takes its parallel surrogate: under
+    ``roofline_lowering`` or ``surrogate_slstm``."""
+    return _ROOFLINE.get() or _SLSTM_SURROGATE.get()
+
+
+@contextlib.contextmanager
+def surrogate_slstm():
+    tok = _SLSTM_SURROGATE.set(True)
+    try:
+        yield
+    finally:
+        _SLSTM_SURROGATE.reset(tok)
 
 
 def moe_a2a() -> bool:

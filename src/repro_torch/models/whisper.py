@@ -22,6 +22,19 @@ Layouts are the reference's: weights ``(d_in, d_out)``; the encoder's
 "v": (L, B, cap, Hkv, dh), "cross_k", "cross_v": (L, B, encoder_seq,
 Hkv, dh), "length": ()}``.  Unlike the reference, ``decode_step`` writes
 the self-attention rings in place.
+
+Under a mesh the params, batch and cache may be DTensors sharded by
+``launch.sharding``: the reference's five ``cm.shard`` sites sit at the
+same places (the encoder's input and each layer's output, the
+decoder's input and each layer's output, the logits), each output
+projection's partial sums over ``model`` are summed before its bias and
+the residual (as ``dense`` does), the weights are FSDP-gathered on use,
+the token embeddings looked up on each rank's rows and the positional
+tables (columns over ``model``) on each rank's columns (``_pos_rows``),
+the tied head gathered as ``dense.logits_of`` gathers it, and the ring
+written shard by shard (``dense._write_slots``).  The cross cache,
+sequence-sharded over ``model``, reaches the decode kernel on each
+rank's batch rows and heads (``kernels.ops``).
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
@@ -110,10 +124,30 @@ def _attn_proj(ap: Dict, cfg: ModelConfig, hq: torch.Tensor,
     return q, k, v
 
 
+def _sum(x: torch.Tensor) -> torch.Tensor:
+    """An output projection's partial sums over ``model`` summed, where
+    the reference's GSPMD sums them (a plain tensor as it is)."""
+    return cm.shard(x, "batch", "seq", None)
+
+
 def _out(ap: Dict, cfg: ModelConfig, x: torch.Tensor,
          a: torch.Tensor) -> torch.Tensor:
     """x plus the attention output ``a`` (B, S, H, dh) projected back."""
-    return x + a.reshape(*x.shape[:2], cfg.q_dim) @ ap["wo"] + ap["bo"]
+    return x + _sum(a.reshape(*x.shape[:2], cfg.q_dim) @ ap["wo"]) \
+        + ap["bo"]
+
+
+def _pos_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a positional table (n, d).  A DTensor table, its
+    columns over ``model``, is indexed on each rank's own columns: the
+    rows of a table whose dim 0 is whole, and the result keeps the
+    table's placements."""
+    if not isinstance(table, DTensor):
+        return table[idx]
+    if isinstance(idx, DTensor):
+        idx = idx.full_tensor()
+    return DTensor.from_local(table.to_local()[idx], table.device_mesh,
+                              table.placements, run_check=False)
 
 
 def encode(params: Dict, cfg: ModelConfig,
@@ -121,23 +155,27 @@ def encode(params: Dict, cfg: ModelConfig,
     """embeds: (B, Se, d) frame embeddings from the (stub) frontend ->
     the encoder output (B, Se, d), bidirectional attention through the
     prefill kernel."""
-    x = embeds.to(_dt(cfg)) + params["enc_pos"][None, : embeds.shape[1]]
+    s = embeds.shape[1]
+    x = embeds.to(_dt(cfg)) + _pos_rows(
+        params["enc_pos"], torch.arange(s, device=embeds.device))[None]
+    x = cm.shard(x, "batch", "seq", None)
     for l in range(cfg.n_encoder_layers):
-        ap = _index(params["enc_attn"], l)
-        mp = _index(params["enc_mlp"], l)
+        ap = cm.used(_index(params["enc_attn"], l))
         h = _ln(x, ap["ln"])
         q, k, v = _attn_proj(ap, cfg, h, h)
         x = _out(ap, cfg, x, ops.attention(q, k, v, causal=False))
+        mp = cm.used(_index(params["enc_mlp"], l))
         h2 = _ln(x, mp["ln"])
-        x = x + (cm.gelu(h2 @ mp["w_up"] + mp["b_up"]) @ mp["w_down"]
+        x = x + (_sum(cm.gelu(h2 @ mp["w_up"] + mp["b_up"]) @ mp["w_down"])
                  + mp["b_down"])
+        x = cm.shard(x, "batch", "seq", None)
     return _ln(x, params["enc_norm"])
 
 
 def _mlp(mp: Dict, x: torch.Tensor) -> torch.Tensor:
     """The decoder's GeLU MLP with its residual."""
     h = _ln(x, mp["ln"])
-    return x + cm.gelu(h @ mp["w_up"] + mp["b_up"]) @ mp["w_down"] \
+    return x + _sum(cm.gelu(h @ mp["w_up"] + mp["b_up"]) @ mp["w_down"]) \
         + mp["b_down"]
 
 
@@ -151,18 +189,21 @@ def _decoder(params: Dict, cfg: ModelConfig, batch: Dict
     tokens = batch["tokens"]
     pos = torch.arange(tokens.shape[1], device=tokens.device) \
         % _MAX_TARGET_POS
-    x = params["embed"][tokens] + params["dec_pos"][pos][None]
+    x = cm.shard(cm.embed_rows(params["embed"], tokens)
+                 + _pos_rows(params["dec_pos"], pos)[None], "batch", "seq",
+                 None)
     kvs = []
     for l in range(cfg.n_layers):
-        sp = _index(params["dec_self"], l)
-        cp = _index(params["dec_cross"], l)
+        sp = cm.used(_index(params["dec_self"], l))
+        cp = cm.used(_index(params["dec_cross"], l))
         h = _ln(x, sp["ln"])
         q, k, v = _attn_proj(sp, cfg, h, h)
         x = _out(sp, cfg, x, ops.attention(q, k, v, causal=True))
         h = _ln(x, cp["ln"])
         qc, kc, vc = _attn_proj(cp, cfg, h, enc_out)
         x = _out(cp, cfg, x, ops.attention(qc, kc, vc, causal=False))
-        x = _mlp(_index(params["dec_mlp"], l), x)
+        x = cm.shard(_mlp(cm.used(_index(params["dec_mlp"], l)), x), "batch",
+                     "seq", None)
         kvs.append((k, v, kc, vc))
     return _ln(x, params["dec_norm"]), kvs
 
@@ -170,7 +211,7 @@ def _decoder(params: Dict, cfg: ModelConfig, batch: Dict
 def apply(params: Dict, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     """batch: {"encoder_embeds": (B, Se, d), "tokens": (B, S)} -> logits
     (B, S, padded_vocab) at every decoder position."""
-    return _decoder(params, cfg, batch)[0] @ params["embed"].T
+    return dense.logits_of(params, cfg, _decoder(params, cfg, batch)[0])
 
 
 def prefill(params: Dict, cfg: ModelConfig, inputs, *,
@@ -187,13 +228,15 @@ def prefill(params: Dict, cfg: ModelConfig, inputs, *,
     cap = max(s, capacity or s)
 
     def stacked(j, pad=0):
-        return torch.stack([F.pad(
-            kv[j], (0, 0, 0, 0, 0, pad)) for kv in kvs])
+        # (L, B, S, Hkv, dh), padded only where it needs to be: DTensor's
+        # pad rule fails on a zero pad in torch 2.11
+        a = torch.stack([kv[j] for kv in kvs])
+        return F.pad(a, (0, 0, 0, 0, 0, pad)) if pad else a
 
     cache = {"k": stacked(0, cap - s), "v": stacked(1, cap - s),
              "cross_k": stacked(2), "cross_v": stacked(3),
              "length": torch.tensor(s, dtype=torch.int32, device=x.device)}
-    return x[:, -1:] @ params["embed"].T, cache
+    return dense.logits_of(params, cfg, x[:, -1:]), cache
 
 
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
@@ -205,24 +248,25 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     (B, 1, padded_vocab), the cache with length + 1)."""
     length = cache["length"]
     b = token.shape[0]
-    _, rows, slot, n_valid = _ring_step(length, b, cache["k"].shape[2])
+    _, slot, n_valid = _ring_step(length, b, cache["k"].shape[2])
     n_cross = torch.full((b,), cache["cross_k"].shape[2], dtype=torch.int32,
                          device=token.device)
-    x = (params["embed"][token]
-         + params["dec_pos"][length.long() % _MAX_TARGET_POS][None, None])
+    x = (cm.embed_rows(params["embed"], token)
+         + _pos_rows(params["dec_pos"], (length.long() % _MAX_TARGET_POS
+                                         ).reshape(1))[None])
     for l in range(cfg.n_layers):
-        sp = _index(params["dec_self"], l)
-        cp = _index(params["dec_cross"], l)
+        sp = cm.used(_index(params["dec_self"], l))
+        cp = cm.used(_index(params["dec_cross"], l))
         kc, vc = cache["k"][l], cache["v"][l]
         h = _ln(x, sp["ln"])
         q, k, v = _attn_proj(sp, cfg, h, h)
-        kc.index_put_((rows, slot), k[:, 0])
-        vc.index_put_((rows, slot), v[:, 0])
+        dense._write_slots(kc, slot, k)
+        dense._write_slots(vc, slot, v)
         x = _out(sp, cfg, x, ops.decode(q, kc, vc, n_valid))
         h = _ln(x, cp["ln"])
         q = _heads(cfg, h @ cp["wq"] + cp["bq"], cfg.n_heads)
         x = _out(cp, cfg, x, ops.decode(q, cache["cross_k"][l],
                                         cache["cross_v"][l], n_cross))
-        x = _mlp(_index(params["dec_mlp"], l), x)
+        x = _mlp(cm.used(_index(params["dec_mlp"], l)), x)
     x = _ln(x, params["dec_norm"])
-    return x @ params["embed"].T, {**cache, "length": length + 1}
+    return dense.logits_of(params, cfg, x), {**cache, "length": length + 1}

@@ -22,9 +22,14 @@ state are float32.  Traps kept from the reference: a padded chunk step
 takes ``i = -1e30`` and ``f = 30`` (no write, no decay); the stabilizer
 starts at ``m = -1e30``; where ``m_t`` is very negative,
 ``max(|den|, exp(-m_t))`` is ``inf`` and h is 0 (not clamped); the decode
-conv applies the kernel reversed over its history window.  The reference's
-roofline surrogate of the sLSTM (taken only under its dry-run's roofline
-mode) has no counterpart here.
+conv applies the kernel reversed over its history window.
+
+Under the dry run's roofline mode (``runtime.roofline_mode``) the
+reference's two sites are taken: the sLSTM over a sequence becomes its
+parallel surrogate (``_slstm_surrogate``: the same op counts a step, the
+feedback ``h_{t-1}`` replaced by the shifted input stream; the values
+differ), and the mLSTM's chunk is at least 1024.  The dry run's memory
+runs take the surrogate alone (``runtime.surrogate_slstm``).
 
 Layouts are the reference's: weights ``(d_in, d_out)``; the groups' params
 stacked on a leading ``n_groups`` axis under ``groups.blk{i}``, the tail's
@@ -32,21 +37,63 @@ unstacked under ``tail.blk{i}``; the decode cache ``{"groups": {blk{i}:
 {"C", "n", "m", "conv"} or {"c", "n", "m", "h"}} stacked on groups,
 "tail": [per tail block], "length": ()}``.  Unlike the reference,
 ``decode_step`` updates the cache's tensors in place.
+
+Under a mesh the params, batch and cache may be DTensors sharded by
+``launch.sharding`` (the reference has no ``cm.shard`` site here): the
+weights are FSDP-gathered on use, each block's output projection sums
+its partial sums over ``model`` before the residual (as ``rglru``
+does), the decode's embeddings are looked up on each rank's rows, and
+the states are copied back into the stacked cache in its own placements
+(``common.copy_into``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch.compat import meshenv
 from repro_torch.models import common as cm
-from repro_torch.models import dense
+from repro_torch.models import dense, runtime
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rglru import _causal_conv, _index
 
 _NEG = -1e30          # "minus infinity" of the stabilizer and of pad gates
+
+
+def _reshape_last(a: torch.Tensor, shape: Tuple[int, ...],
+                  n: int) -> torch.Tensor:
+    """``a`` with its last ``n`` dims reshaped to ``shape``.  A DTensor is
+    reshaped on each rank's own tensor after those dims are gathered
+    where they are sharded: DTensor splits no uneven shard (xlstm-1.3b's
+    4 heads over the cluster's ``model`` axis of 8), and the gradient of a
+    merge is a split."""
+    lead = tuple(a.shape[:a.ndim - n])
+    if not isinstance(a, DTensor):
+        return a.reshape(*lead, *shape)
+    mesh = a.device_mesh
+    pl = [Replicate() if p.is_shard() and p.dim >= a.ndim - n else p
+          for p in a.placements]
+    if pl != list(a.placements):
+        a = a.redistribute(mesh, pl)
+    local = a.to_local()
+    return DTensor.from_local(
+        local.reshape(*local.shape[:a.ndim - n], *shape), mesh, pl,
+        run_check=False)
+
+
+def _split_heads(a: torch.Tensor, nh: int) -> torch.Tensor:
+    """(..., nh * dh) -> (..., nh, dh)."""
+    return _reshape_last(a, (nh, a.shape[-1] // nh), 1)
+
+
+def _merge_heads(a: torch.Tensor) -> torch.Tensor:
+    """(..., nh, dh) -> (..., nh * dh)."""
+    return _reshape_last(a, (a.shape[-2] * a.shape[-1],), 2)
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -162,16 +209,54 @@ def _qkvif(mp: Dict, cfg: ModelConfig, conv: torch.Tensor,
     """The cell's inputs from the conv branch (after its SiLU) and the up
     projection u, both (B, T, ud): q, k, v (B, T, H, dh) and the gate
     pre-activations i, f (B, T, H), all float32."""
-    b, t, ud = u.shape
+    ud = u.shape[-1]
     h = cfg.n_heads
     dh = ud // h
-    ch = conv.reshape(b, t, h, dh).float()
-    uh = u.reshape(b, t, h, dh).float()
+    ch = _split_heads(conv, h).float()
+    uh = _split_heads(u, h).float()
     q = torch.einsum("bthd,hde->bthe", ch, mp["wq"].float())
     k = torch.einsum("bthd,hde->bthe", ch, mp["wk"].float()) / dh ** 0.5
     v = torch.einsum("bthd,hde->bthe", uh, mp["wv"].float())
     cf = conv.float()
     return q, k, v, cf @ mp["w_i"], cf @ mp["w_f"] + mp["b_f"]
+
+
+def _local_layout(mesh, rows: int, heads: int
+                  ) -> Tuple[Dict[str, int], bool]:
+    """How a cell of ``rows`` batch rows and ``heads`` heads runs on
+    ``mesh``'s local shards: (the batch axes that shard the rows, as
+    ``{axis: 0}``, where they divide them; whether ``model`` shards the
+    heads, where it divides them)."""
+    sizes = meshenv.axis_sizes(mesh)
+    bx = [a for a in ("pod", "data") if a in sizes]
+    split = rows % math.prod(sizes[a] for a in bx) == 0
+    return ({a: 0 for a in bx} if split else {},
+            "model" in sizes and heads % sizes["model"] == 0)
+
+
+def _mlstm_cell(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                it: torch.Tensor, ft: torch.Tensor,
+                state: Optional[Tuple[torch.Tensor, ...]], *extra
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``fn(q, k, v, it, ft, state, *extra)``, the chunkwise or the
+    recurrent mLSTM.  On DTensors each rank runs it on plain local tensors
+    of its own batch rows and heads (the heads over ``model`` where it
+    divides them, else whole on every rank): every op of the cell is per
+    row and per head, so nothing crosses ranks, and DTensor needs no rule
+    for its ops (torch 2.11 has none for ``cummax``)."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, it, ft, state, *extra)
+    mesh = q.device_mesh
+    rows, tp = _local_layout(mesh, q.shape[0], q.shape[2])
+
+    seq = {**rows, **({"model": 2} if tp else {})}    # (B, T, H, ...)
+    st = {**rows, **({"model": 1} if tp else {})}     # (B, H, ...)
+    local = [meshenv.to_local(a, mesh, seq) for a in (q, k, v, it, ft)]
+    if state is not None:
+        state = tuple(meshenv.to_local(a, mesh, st) for a in state)
+    h, out = fn(*local, state, *extra)
+    return (meshenv.from_local(h, q, seq),
+            tuple(meshenv.from_local(a, q, st) for a in out))
 
 
 def _mlstm_qkvif(mp: Dict, cfg: ModelConfig, x: torch.Tensor
@@ -278,13 +363,13 @@ def mlstm_recurrent_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _mlstm_block(mp: Dict, cfg: ModelConfig, x: torch.Tensor,
                  state: Optional[Tuple[torch.Tensor, ...]] = None,
                  conv_state: Optional[torch.Tensor] = None,
-                 decode: bool = False
+                 decode: bool = False, chunk: int = 64
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...],
                             torch.Tensor]:
-    """The mLSTM block over x (B, T, d), or one decode token (T = 1) from
-    ``state`` and ``conv_state`` (the last ``conv_width - 1`` up
-    projections).  Returns (x + out, the cell state, the conv state)."""
-    b, t, _ = x.shape
+    """The mLSTM block over x (B, T, d) in chunks of ``chunk``, or one
+    decode token (T = 1) from ``state`` and ``conv_state`` (the last
+    ``conv_width - 1`` up projections).  Returns (x + out, the cell
+    state, the conv state)."""
     if decode:
         h_in = cm.apply_norm(x, mp["ln"], "rmsnorm")
         u = h_in @ mp["w_up"]
@@ -292,45 +377,73 @@ def _mlstm_block(mp: Dict, cfg: ModelConfig, x: torch.Tensor,
         # hist[:, -1] is u_t and out_t = sum_j w[j] u_{t-j}: the kernel
         # applies reversed over the history window
         hist = torch.cat([conv_state, u], dim=1)                 # (B, cw, ud)
-        conv = F.silu((hist * mp["conv_w"].flip(0)).sum(dim=1, keepdim=True)
+        conv = F.silu((hist * cm.flip0(mp["conv_w"])).sum(dim=1, keepdim=True)
                       + mp["conv_b"])
-        hseq, new_state = mlstm_recurrent_step(*_qkvif(mp, cfg, conv, u),
-                                               state)
+        hseq, new_state = _mlstm_cell(mlstm_recurrent_step,
+                                      *_qkvif(mp, cfg, conv, u), state)
         new_conv = hist[:, 1:]
     else:
         q, k, v, it, ft, g, u = _mlstm_qkvif(mp, cfg, x)
-        hseq, new_state = mlstm_chunkwise(q, k, v, it, ft, state)
+        hseq, new_state = _mlstm_cell(mlstm_chunkwise, q, k, v, it, ft,
+                                      state, chunk)
         new_conv = u[:, -(cfg.conv_width - 1):]
-    hflat = hseq.reshape(b, t, _ud(cfg)).to(x.dtype)
-    return x + (hflat * F.silu(g)) @ mp["w_down"], new_state, new_conv
+    hflat = _merge_heads(hseq).to(x.dtype)
+    return (x + cm.project_out(hflat * F.silu(g), mp["w_down"]), new_state,
+            new_conv)
 
 
 # -------------------------------------------------------------- sLSTM cell
+def _slstm_ffn(sp: Dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """x plus the sLSTM block's gated FFN of its cell output h (B, T, d)."""
+    return x + cm.project_out(cm.gelu(h @ sp["w_up1"]) * (h @ sp["w_up2"]),
+                              sp["w_down"])
+
+
 def _slstm_block(sp: Dict, cfg: ModelConfig, x: torch.Tensor,
                  state: Optional[Tuple[torch.Tensor, ...]] = None
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """The sLSTM block, a sequential loop over time.  x: (B, T, d);
     ``state`` (c, n, m, h), each (B, d) float32, or None for zeros with
-    ``m = -1e30``.  Returns (x + the gated FFN of h, the final state)."""
-    b, t, d = x.shape
+    ``m = -1e30``.  Returns (x + the gated FFN of h, the final state).
+    Under ``runtime.slstm_surrogate`` (the dry run's) a sequence (T > 1)
+    takes ``_slstm_surrogate`` instead.  On DTensors either runs on each
+    rank's batch rows and heads (``_slstm_sharded``)."""
+    t = x.shape[1]
     nh = cfg.n_heads
-    dh = d // nh
     xin = cm.apply_norm(x, sp["ln"], "rmsnorm").float()
-    # the input's share of the four gates at every step, (T, 4, B, d)
-    pre = torch.stack([xin @ sp["w_z"].float(), xin @ sp["w_i"].float(),
-                       xin @ sp["w_f"].float() + sp["b_f"],
-                       xin @ sp["w_o"].float()]).permute(2, 0, 1, 3)
-    if state is None:
-        zeros = xin.new_zeros((b, d))
-        state = (zeros, zeros, xin.new_full((b, d), _NEG), zeros)
-    c, n, m, h = state
+    # the input's share of the four gates at every step, each (B, T, d)
+    zx, ix, ox = (xin @ sp[f"w_{g}"].float() for g in ("z", "i", "o"))
+    fx = xin @ sp["w_f"].float() + sp["b_f"]
     # the recurrent matrices of z, i, f, o, each (H, dh, dh) block-diagonal
     r = torch.stack([sp[f"r_{g}"].float() for g in ("z", "i", "f", "o")])
+    cell = (_slstm_surrogate if runtime.slstm_surrogate() and t > 1
+            else _slstm_loop)
+    pre = (zx, ix, fx, ox)
+    if isinstance(zx, DTensor):
+        hs, state = _slstm_sharded(cell, pre, r, state, nh)
+    else:
+        hs, state = cell(pre, r, state, nh)
+    return _slstm_ffn(sp, x, hs.to(x.dtype)), state
+
+
+def _slstm_loop(pre: Tuple[torch.Tensor, ...], r: torch.Tensor,
+                state: Optional[Tuple[torch.Tensor, ...]], nh: int
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The sLSTM recurrence over time on plain tensors.  pre: the inputs'
+    gate shares (z, i, f, o), each (B, T, d) float32; r: the stacked
+    recurrent matrices (4, nh, dh, dh).  Returns (h (B, T, d), (c, n, m,
+    h))."""
+    b, t, d = pre[0].shape
+    steps = torch.stack(pre).permute(2, 0, 1, 3)             # (T, 4, B, d)
+    if state is None:
+        zeros = steps.new_zeros((b, d))
+        state = (zeros, zeros, steps.new_full((b, d), _NEG), zeros)
+    c, n, m, h = state
     hs = []
     for s in range(t):
-        rec = torch.einsum("bhd,ghde->gbhe", h.reshape(b, nh, dh),
+        rec = torch.einsum("bhd,ghde->gbhe", h.reshape(b, nh, d // nh),
                            r).reshape(4, b, d)
-        gz, gi, gf, go = pre[s] + rec
+        gz, gi, gf, go = steps[s] + rec
         z, o = torch.tanh(gz), torch.sigmoid(go)
         logf = F.logsigmoid(gf)
         m_new = torch.maximum(logf + m, gi)
@@ -341,36 +454,95 @@ def _slstm_block(sp: Dict, cfg: ModelConfig, x: torch.Tensor,
         m = m_new
         h = o * c / torch.clamp(n, min=1.0)
         hs.append(h)
-    hseq = torch.stack(hs, dim=1).to(x.dtype)                    # (B, T, d)
-    ff = ((cm.gelu(hseq @ sp["w_up1"]) * (hseq @ sp["w_up2"]))
-          @ sp["w_down"])
-    return x + ff, (c, n, m, h)
+    return torch.stack(hs, dim=1), (c, n, m, h)
+
+
+def _slstm_sharded(cell, pre: Tuple[torch.Tensor, ...], r: torch.Tensor,
+                   state: Optional[Tuple[torch.Tensor, ...]], nh: int
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``cell`` (``_slstm_loop`` or ``_slstm_surrogate``) on DTensors:
+    each rank runs it on its own batch rows (over the data axes) and heads
+    (over ``model`` where it divides them; the recurrent matrices are
+    block-diagonal, so a head feeds back only into itself), on plain
+    local tensors with no collective inside.  The results are DTensors in
+    that layout."""
+    mesh = pre[0].device_mesh
+    rows, tp = _local_layout(mesh, pre[0].shape[0], nh)
+    seq = {**rows, **({"model": 2} if tp else {})}          # (B, T, d)
+    vec = {**rows, **({"model": 1} if tp else {})}          # (B, d)
+    local_pre = [meshenv.to_local(a, mesh, seq) for a in pre]
+    # every row uses r: its gradient on a rank is a partial sum over the
+    # ranks that hold other rows
+    heads = meshenv.placed(mesh, {"model": 1} if tp else {})
+    local_r = r.redistribute(mesh, heads).to_local(grad_placements=[
+        Partial() if n in rows else p
+        for n, p in zip(mesh.mesh_dim_names, heads)]).contiguous()
+    local_state = (None if state is None else
+                   [meshenv.to_local(a, mesh, vec) for a in state])
+    hs, out = cell(local_pre, local_r, local_state, local_r.shape[1])
+    return (meshenv.from_local(hs, pre[0], seq),
+            tuple(meshenv.from_local(a, pre[0], vec) for a in out))
+
+
+def _slstm_surrogate(pre: Tuple[torch.Tensor, ...], r: torch.Tensor,
+                     state: Optional[Tuple[torch.Tensor, ...]], nh: int
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The reference's FLOPs-equivalent parallel surrogate of the sLSTM
+    over a sequence (reference ``xlstm._slstm_block`` under its roofline
+    mode), for the dry run's counts: the same op counts a step, the
+    feedback ``h_{t-1}`` replaced by the shifted ``z`` input stream, the
+    stabilizer, cell and normalizer from cumulative sums, so no loop over
+    T remains, and ``state`` is not read.  Values differ from the loop's;
+    counts do not.  Arguments and results as ``_slstm_loop``'s."""
+    del state
+    zx, ix, fx, ox = pre
+    b, t, d = zx.shape
+    hprev = torch.cat([torch.zeros_like(zx[:, :1]), zx[:, :t - 1]], 1)
+    hprev = hprev.reshape(b, t, nh, d // nh)
+
+    def rdot(g):
+        return torch.einsum("bthd,hde->bthe", hprev, r[g]).reshape(b, t, d)
+
+    z = torch.tanh(zx + rdot(0))
+    i_pre = ix + rdot(1)
+    f_pre = fx + rdot(2)
+    o = torch.sigmoid(ox + rdot(3))
+    logf = F.logsigmoid(f_pre)
+    m = torch.maximum(torch.cumsum(logf, 1), i_pre)
+    fp, ip = torch.exp(logf), torch.exp(i_pre - m)
+    c = torch.cumsum(fp * z * ip, 1)
+    n = torch.cumsum(fp * ip, 1)
+    h = o * c / torch.clamp(n, min=1.0)
+    return h, (c[:, -1], n[:, -1], m[:, -1], h[:, -1])
 
 
 # ----------------------------------------------------------------- forward
 def _blocks(params: Dict, cfg: ModelConfig):
     """Every block in order: (where, group index or None, i, kind, block
-    params)."""
+    params as they are used)."""
     n_groups, tail = group_structure(cfg)
     for g in range(n_groups):
-        gp = _index(params["groups"], g)
+        gp = cm.used(_index(params["groups"], g))
         for i, kind in enumerate(block_pattern(cfg)):
             yield "groups", g, i, kind, gp[f"blk{i}"]
+    tp = cm.used(params["tail"])
     for i, kind in enumerate(tail):
-        yield "tail", None, i, kind, params["tail"][f"blk{i}"]
+        yield "tail", None, i, kind, tp[f"blk{i}"]
 
 
 _STATE_NAMES = {"m": ("C", "n", "m"), "s": ("c", "n", "m", "h")}
 
 
-def _forward(params: Dict, cfg: ModelConfig, inputs,
-             want_cache: bool) -> Tuple[torch.Tensor, Optional[Dict]]:
+def _forward(params: Dict, cfg: ModelConfig, inputs, want_cache: bool,
+             chunk: int) -> Tuple[torch.Tensor, Optional[Dict]]:
+    if runtime.roofline_mode():
+        chunk = max(chunk, 1024)    # the reference's: few, unrolled chunks
     x, _ = dense.embed_inputs(params, cfg, dense._as_batch(inputs))
     groups: Dict[str, Dict[str, List[torch.Tensor]]] = {}
     tail: List[Dict] = []
     for where, _, i, kind, bp in _blocks(params, cfg):
         if kind == "m":
-            x, state, conv = _mlstm_block(bp, cfg, x)
+            x, state, conv = _mlstm_block(bp, cfg, x, chunk=chunk)
             st = dict(zip(_STATE_NAMES["m"], state), conv=conv)
         else:
             x, state = _slstm_block(bp, cfg, x)
@@ -393,20 +565,23 @@ def _forward(params: Dict, cfg: ModelConfig, inputs,
     return dense.logits_of(params, cfg, x[:, -1:]), cache
 
 
-def apply(params: Dict, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+def apply(params: Dict, cfg: ModelConfig, batch: Dict, *,
+          chunk: int = 64) -> torch.Tensor:
     """Full-sequence forward: logits (B, S, padded_vocab) at every position
-    of ``batch["tokens"]`` (B, S), the mLSTM in chunks of 64."""
-    return _forward(params, cfg, batch, want_cache=False)[0]
+    of ``batch["tokens"]`` (B, S), the mLSTM in chunks of ``chunk``."""
+    return _forward(params, cfg, batch, want_cache=False, chunk=chunk)[0]
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens, *,
-            capacity: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+            capacity: Optional[int] = None, chunk: int = 64
+            ) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt (tokens (B, S), left-padded on the wave path, or a
     batch dict) and return the last position's logits (B, 1,
     padded_vocab) and the decode cache: each block's final state (the
     mLSTM's also its last ``conv_width - 1`` up projections) and "length":
-    S.  The state is O(1) in S, so ``capacity`` is not used."""
-    return _forward(params, cfg, tokens, want_cache=True)
+    S.  The state is O(1) in S, so ``capacity`` is not used; the mLSTM
+    runs in chunks of ``chunk``."""
+    return _forward(params, cfg, tokens, want_cache=True, chunk=chunk)
 
 
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
@@ -414,7 +589,7 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     """One lock-step decode step: token (B, 1), every block's state updated
     in place.  Returns (logits (B, 1, padded_vocab), the cache with length
     + 1)."""
-    x = params["embed"][token]
+    x = cm.embed_rows(params["embed"], token)
     for where, g, i, kind, bp in _blocks(params, cfg):
         st = (cache["tail"][i] if where == "tail"
               else _index(cache["groups"][f"blk{i}"], g))
@@ -423,11 +598,11 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
         if kind == "m":
             x, state, conv = _mlstm_block(bp, cfg, x, state=state,
                                           conv_state=st["conv"], decode=True)
-            st["conv"].copy_(conv)
+            cm.copy_into(st["conv"], conv)
         else:
             x, state = _slstm_block(bp, cfg, x, state=state)
         for name, a in zip(names, state):
-            st[name].copy_(a)
+            cm.copy_into(st[name], a)
     x = cm.apply_norm(x, params["final_norm"], "rmsnorm")
     return dense.logits_of(params, cfg, x), {**cache,
                                             "length": cache["length"] + 1}

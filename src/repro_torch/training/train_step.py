@@ -59,21 +59,22 @@ def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict, aux_weight: float = 0.01
-            ) -> Tuple[torch.Tensor, Dict]:
-    logits, aux = registry.apply_with_aux(params, cfg, batch)
+def loss_fn(params, cfg: ModelConfig, batch: Dict, aux_weight: float = 0.01,
+            **apply_kw) -> Tuple[torch.Tensor, Dict]:
+    logits, aux = registry.apply_with_aux(params, cfg, batch, **apply_kw)
     ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
-def loss_and_grads(params, cfg: ModelConfig, batch: Dict):
-    """(loss, parts, grads): ``loss_fn`` on ``batch`` and its gradient
+def loss_and_grads(params, cfg: ModelConfig, batch: Dict, **apply_kw):
+    """(loss, parts, grads): ``loss_fn`` on ``batch`` (``apply_kw`` to the
+    family's ``apply``) and its gradient
     with respect to every leaf of ``params`` (a tree of the same
     structure; zero where the loss does not reach), taken through
     aliases of the leaves, so the caller's params never require grad."""
     leaves, build = flatten(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
-    loss, parts = loss_fn(build(live), cfg, batch)
+    loss, parts = loss_fn(build(live), cfg, batch, **apply_kw)
     grads = torch.autograd.grad(loss, live, materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in parts.items()},
             build(list(grads)))
@@ -151,16 +152,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     microbatches > 1, gradients are accumulated over equal slices of the
     (global) batch dimension, each rank's rows of a DTensor batch split
     as evenly (``_regroup_rows``), and the metrics report ``ce`` as the
-    mean total loss and ``aux`` as 0, as the reference does.  ``apply_kw``
-    (``q_chunk``, ``kv_chunk``, xlstm's ``chunk``) are the reference's XLA
-    chunk settings; the port's ``apply`` takes none, so they are accepted
-    and dropped."""
-    del apply_kw
+    mean total loss and ``aux`` as 0, as the reference does.  Of
+    ``apply_kw``, xlstm's ``chunk`` goes to ``apply``; the reference's
+    attention chunks (``q_chunk``, ``kv_chunk``, ``skip_masked_blocks``)
+    are XLA settings with no counterpart in the port (the kernels tile on
+    the card), accepted and dropped."""
+    apply_kw = {k: v for k, v in apply_kw.items() if k == "chunk"}
 
     def train_step(state, batch):
         params = state["params"]
         if microbatches == 1:
-            loss, parts, grads = loss_and_grads(params, cfg, batch)
+            loss, parts, grads = loss_and_grads(params, cfg, batch,
+                                                **apply_kw)
         else:
             batch = {k: _regroup_rows(v, microbatches)
                      for k, v in batch.items()}
@@ -169,7 +172,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             loss = acc[0].new_zeros(())
             for i in range(microbatches):
                 mb = _split_microbatch(batch, microbatches, i)
-                mb_loss, _, g = loss_and_grads(params, cfg, mb)
+                mb_loss, _, g = loss_and_grads(params, cfg, mb, **apply_kw)
                 for a, gi in zip(acc, flatten(g)[0]):
                     a.add_(gi.float())
                 loss = loss + mb_loss

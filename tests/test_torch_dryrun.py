@@ -6,12 +6,16 @@
 * An add followed by a 128 x 128 float32 matmul counts only the matmul's
   operands and result toward the HBM traffic, ``3 * 128*128*4``, and the
   matmul's 2 * 128^3 FLOPs.
-* ``lower_one("qwen3-8b", "train_4k")`` and ``("granite-moe-1b-a400m",
-  "decode_32k")`` run on the fake 256-rank (32, 8) mesh: their reports
-  have the reference's keys, ``model_flops`` is the reference's formula
-  exactly, and the per-device argument bytes are those of the local
-  shards.  The hybrid, ssm and audio families raise
-  ``NotImplementedError`` under a mesh.
+* ``lower_one`` of ``("qwen3-8b", "train_4k")`` and
+  ``("granite-moe-1b-a400m", "decode_32k")`` runs on the fake 256-rank
+  (32, 8) mesh: the reports have the reference's keys and its microbatch
+  counts, ``model_flops`` is the reference's formula exactly, and the
+  per-device argument bytes are those of the local shards
+  (``check_lower_one``, which ``tests/test_torch_dryrun_hybrid.py`` and
+  ``tests/test_torch_dryrun_ssm_audio.py`` hold the other families to,
+  each file a worker's share of the time).
+* ``sharding.cache_shardings``, ``distribute`` and ``gather`` walk the
+  hybrid cache's ``tail`` list, its index the path component.
 """
 
 import pytest
@@ -78,13 +82,23 @@ def _model_flops(arch, shape):
                                         ("granite-moe-1b-a400m",
                                          "decode_32k")])
 def test_lower_one_reports_on_the_h100_mesh(arch, shape):
+    check_lower_one(arch, shape)
+
+
+def check_lower_one(arch, shape):
+    """``lower_one(arch, shape)``'s report on the (32, 8) mesh: the
+    reference's keys and microbatch count and ``model_flops``, positive
+    counts, collectives of FSDP and of ``model``, and argument bytes equal
+    to one rank's shards of the inputs."""
+    from repro.launch.steps import TRAIN_MICROBATCHES
     rep = dryrun.lower_one(arch, shape, device="cpu")
     assert REPORT_KEYS <= set(rep)
     assert set(rep["memory"]) == MEMORY_KEYS
     assert set(rep["roofline"]) == ROOFLINE_KEYS
     assert set(rep["collective_bytes"]) == set(dryrun._COLLECTIVES)
     assert rep["mesh"] == "32x8" and rep["kind"] == _INPUT_SHAPES[shape].kind
-    assert rep.get("microbatches") == (4 if shape == "train_4k" else None)
+    assert rep.get("microbatches") == (TRAIN_MICROBATCHES[arch]
+                                       if shape == "train_4k" else None)
     assert rep["roofline"]["model_flops"] == _model_flops(arch, shape)
     assert rep["roofline"]["hlo_flops_global"] == \
         rep["per_device"]["flops"] * 256
@@ -96,12 +110,50 @@ def test_lower_one_reports_on_the_h100_mesh(arch, shape):
     assert rep["collective_bytes"]["all-reduce"] > 0
     mem = rep["memory"]
     assert mem["peak_bytes"] == mem["temp_bytes"] + mem["argument_bytes"]
-    # argument bytes: the whole inputs over the shards, within what the
-    # unshardable leaves (norm scales, the replicated step count) add
+    # argument bytes: each input leaf over the mesh axes of its spec
     from repro_torch.launch.specs import input_specs
     specs = input_specs(arch, shape)
-    total = sum(t.numel() * t.element_size() for t in _tensors(specs))
-    assert total / 256 <= mem["argument_bytes"] <= total / 256 * 1.05
+    assert mem["argument_bytes"] == _shard_bytes(specs)
+    if arch in ("qwen3-8b", "granite-moe-1b-a400m"):
+        # the whole inputs over the shards, within what the unshardable
+        # leaves (norm scales, the replicated step count) add; in the
+        # hybrid, ssm and audio families the leaves that shard over one
+        # axis or none (positional tables, ``lam``, biases, a batch-1
+        # cache) weigh more than 5%
+        total = sum(t.numel() * t.element_size() for t in _tensors(specs))
+        assert total / 256 <= mem["argument_bytes"] <= total / 256 * 1.05
+
+
+def _shard_bytes(specs):
+    """Bytes of one rank's shards of the step's inputs on the (32, 8)
+    mesh, from ``launch.sharding``'s specs."""
+    from repro_torch.launch import sharding as sh
+    mesh = {"data": 32, "model": 8}
+
+    def local(tree, spec):
+        if isinstance(tree, dict):
+            return sum(local(v, spec[k]) for k, v in tree.items())
+        if isinstance(tree, list):
+            return sum(local(v, s) for v, s in zip(tree, spec))
+        n = 1
+        for entry in spec:
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                n *= mesh[a]
+        return tree.numel() * tree.element_size() // n
+
+    if "state" in specs:
+        ps = sh.params_shardings(specs["state"]["params"], mesh)
+        return local(specs["state"], {"params": ps,
+                                      "opt": sh.opt_shardings(ps)}) + \
+            local(specs["batch"], sh.batch_shardings(specs["batch"], mesh))
+    out = local(specs["params"], sh.params_shardings(specs["params"], mesh))
+    if "batch" in specs:
+        return out + local(specs["batch"],
+                           sh.batch_shardings(specs["batch"], mesh))
+    tok = specs["token"]
+    return out + local(specs["cache"], sh.cache_shardings(
+        specs["cache"], mesh)) + local(tok, sh.batch_spec(tuple(tok.shape),
+                                                          mesh))
 
 
 def _tensors(specs):
@@ -111,25 +163,43 @@ def _tensors(specs):
         if isinstance(t, dict):
             for v in t.values():
                 walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
         elif isinstance(t, torch.Tensor):
             out.append(t)
     walk({k: v for k, v in specs.items() if k not in ("cfg", "shape")})
     return out
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b",
-                                  "whisper-base"])
-def test_families_not_yet_under_a_mesh_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        dryrun.lower_one(arch, "decode_32k", device="cpu")
-    from repro_torch.launch.steps import build_serve_step
-    cfg = get_config(arch)
-    step = build_serve_step(cfg, _INPUT_SHAPES["decode_32k"])
+def test_cache_shardings_walk_the_tail_list():
+    """recurrentgemma-9b at five layers: a group of (rec, rec, attn) and a
+    tail list of two recurrent layers.  Each tail entry's spec is
+    ``cache_spec`` of its ``tail/<index>/<name>`` path, and ``distribute``
+    then ``gather`` on a one-rank mesh return every leaf, lists kept."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import cache_struct
+    cfg = get_config("recurrentgemma-9b").smoke().replace(n_layers=5)
+    cache = cache_struct(cfg, 4, 96)
+    assert isinstance(cache["tail"], list) and len(cache["tail"]) == 2
+    mesh = {"data": 2, "model": 2}
+    specs = sh.cache_shardings(cache, mesh)
+    assert isinstance(specs["tail"], list) and len(specs["tail"]) == 2
+    for i, st in enumerate(cache["tail"]):
+        assert set(st) == {"h", "conv"}
+        for name, t in st.items():
+            assert specs["tail"][i][name] == sh.cache_spec(
+                f"tail/{i}/{name}", tuple(t.shape), mesh)
+    assert specs["groups"]["blk2"]["k"] == (None, ("data",), "model", None,
+                                            None)
+    real = {"tail": [{"h": torch.randn(4, 8)}, {"h": torch.randn(4, 8)}],
+            "length": torch.tensor(3)}
     with meshenv.fake_process_group(1):
-        mesh = meshenv.make_mesh((1, 1), ("data", "model"), "cpu")
-        with meshenv.mesh_context(mesh), \
-                pytest.raises(NotImplementedError, match="item 10"):
-            step(None, None, None)
+        m = meshenv.make_mesh((1, 1), ("data", "model"), "cpu")
+        back = sh.gather(sh.distribute(real, sh.cache_shardings(real, m), m))
+    assert isinstance(back["tail"], list)
+    assert all(torch.equal(a["h"], b["h"])
+               for a, b in zip(back["tail"], real["tail"]))
 
 
 @pytest.mark.parametrize("multi_pod,want", [(False, 8), (True, 4)])

@@ -1,8 +1,9 @@
 """The port's input specs against ``repro.launch.specs`` (mirrors
 ``tests/test_launch.py`` ``TestInputSpecs``).
 
-The reference's six (arch x shape) cases plus one for each arch they
-leave out: the structure ``TestInputSpecs`` checks, and every leaf's
+The reference's six (arch x shape) cases, one for each arch they
+leave out and one more cache for each of the hybrid, ssm and audio
+families: the structure ``TestInputSpecs`` checks, and every leaf's
 shape and dtype equal to the reference's ``input_specs`` (the port's are
 fake tensors, the reference's ``ShapeDtypeStruct``s).  ``grid()`` has the
 reference's 40 entries; qwen3-8b's ``long_500k`` cache is a 4096 ring;
@@ -27,7 +28,10 @@ CASES = [("qwen3-8b", "train_4k"), ("dbrx-132b", "decode_32k"),
          # the archs the reference's cases leave out
          ("starcoder2-7b", "decode_32k"), ("granite-moe-1b-a400m",
                                             "train_4k"),
-         ("qwen3-32b", "prefill_32k"), ("command-r-plus-104b", "long_500k")]
+         ("qwen3-32b", "prefill_32k"), ("command-r-plus-104b", "long_500k"),
+         # the hybrid, ssm and audio families' other caches
+         ("recurrentgemma-9b", "long_500k"), ("xlstm-1.3b", "decode_32k"),
+         ("whisper-base", "decode_32k")]
 
 
 @pytest.fixture(autouse=True)
@@ -120,7 +124,8 @@ def test_reduced_depth_and_groups_match_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "granite-moe-1b-a400m",
-                                  "whisper-base", "xlstm-1.3b"])
+                                  "whisper-base", "xlstm-1.3b",
+                                  "recurrentgemma-9b"])
 def test_state_shape_matches_the_reference(arch):
     from repro.configs import get_config as jget
     from repro.training.train_step import state_shape as jstate_shape

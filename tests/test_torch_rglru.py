@@ -2,7 +2,9 @@
 the JAX package (CPU), and the plain attention at its head width.
 
 * The RG-LRU pieces (``_causal_conv``, ``rglru_scan`` with and without an
-  incoming state, ``rglru_step``) against ``repro.models.rglru``'s.
+  incoming state, ``rglru_step``) against ``repro.models.rglru``'s; the
+  associative scan and its plain version, the loop over time, against
+  the reference's at T = 1, 2, 7, 64 and 100 within 1e-6 of max|h|.
 * ``apply``, and ``prefill`` then lock-step ``decode_step``, on the same
   perturbed, bridged weights in fp32 (1e-4, ``tests/test_torch_dense.py``'s
   tolerance), at the smoke config with five layers (one (rec, rec, attn)
@@ -98,6 +100,32 @@ def test_rglru_scan_matches_reference(with_h0):
     assert lastt.dtype == torch.float32
     np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-5)
     np.testing.assert_allclose(lastt.numpy(), np.asarray(lastj), atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [1, 2, 7, 64, 100])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_associative_scan_matches_reference_and_the_loop(t, with_h0):
+    """``rglru_scan``'s odd-even recursion, odd and even lengths alike,
+    against the reference's ``jax.lax.associative_scan`` and against the
+    port's sequential loop (``rglru_scan_sequential``), within 1e-6 of
+    max|h|."""
+    rpj, rpt = _rec_params(5, 32)
+    rng = np.random.default_rng(t)
+    u = rng.standard_normal((2, t, 32)).astype(np.float32)
+    h0 = rng.standard_normal((2, 32)).astype(np.float32) if with_h0 else None
+    hj, lastj = jrglru.rglru_scan(rpj, jnp.asarray(u),
+                                  None if h0 is None else jnp.asarray(h0))
+    scale = float(np.abs(np.asarray(hj)).max())
+    ut = torch.from_numpy(u)
+    h0t = None if h0 is None else torch.from_numpy(h0)
+    for fn in (rglru.rglru_scan, rglru.rglru_scan_sequential):
+        ht, lastt = fn(rpt, ut, h0t)
+        assert ht.dtype == torch.float32 == lastt.dtype
+        assert tuple(ht.shape) == (2, t, 32)
+        assert float(np.abs(ht.numpy() - np.asarray(hj)).max()) <= \
+            1e-6 * scale, fn.__name__
+        assert float(np.abs(lastt.numpy() - np.asarray(lastj)).max()) <= \
+            1e-6 * scale, fn.__name__
 
 
 def test_rglru_step_matches_reference_and_the_scan():

@@ -4,8 +4,9 @@
   False), ``cache_spec`` (``cache_shardings``) and ``batch_spec``
   (``batch_shardings``) give the reference's spec leaf for leaf, for every
   param leaf of all 10 configs (``repro.models.registry.params_shape``)
-  and every cache leaf of the covered families (dense, vlm, moe:
-  ``launch.specs.cache_struct``), on five meshes: (1, 1), (16, 16),
+  and every cache leaf of every family (``launch.specs.cache_struct``:
+  the hybrid and ssm caches' stacked groups and ``tail`` lists, whisper's
+  rings and cross K/V), on five meshes: (1, 1), (16, 16),
   (2, 16, 16), (32, 8) and (2, 32, 8).  The reference's rules read only a
   mesh's ``shape`` and ``axis_names``, so both take stand-ins of axis
   sizes; its ``*_shardings`` wrap each spec in a ``NamedSharding``, which
@@ -35,7 +36,8 @@ ARCHS = ["qwen3-8b", "qwen3-32b", "starcoder2-7b", "command-r-plus-104b",
          "granite-moe-1b-a400m", "dbrx-132b", "qwen2-vl-7b",
          "recurrentgemma-9b", "xlstm-1.3b", "whisper-base"]
 COVERED = ["qwen3-8b", "starcoder2-7b", "command-r-plus-104b",
-           "qwen2-vl-7b", "granite-moe-1b-a400m", "dbrx-132b"]
+           "qwen2-vl-7b", "granite-moe-1b-a400m", "dbrx-132b",
+           "recurrentgemma-9b", "xlstm-1.3b", "whisper-base"]
 
 
 @pytest.fixture(autouse=True)
@@ -107,14 +109,23 @@ def _as_dict(tree):
     return tree
 
 
+def _struct(tree):
+    """``jax.ShapeDtypeStruct``s of a cache's shapes, its dicts and lists
+    (the hybrid and ssm caches' ``tail``) kept."""
+    if isinstance(tree, dict):
+        return {k: _struct(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_struct(v) for v in tree]
+    return jax.ShapeDtypeStruct(tuple(tree.shape), np.float32)
+
+
 @pytest.mark.parametrize("arch", COVERED)
 def test_cache_and_batch_specs_match_the_reference(jsh, arch):
     from repro_torch.configs import get_config
     from repro_torch.launch.specs import batch_struct, cache_struct
     cfg = get_config(arch, "decode_32k")
     cache = cache_struct(cfg, 128, 32768)
-    jcache = {k: jax.ShapeDtypeStruct(tuple(v.shape), np.float32)
-              for k, v in cache.items()}
+    jcache = _struct(cache)
     batch = batch_struct(cfg, 128, 4096, with_labels=True)
     jbatch = {k: jax.ShapeDtypeStruct(tuple(v.shape), np.int32)
               for k, v in batch.items()}

@@ -6,7 +6,10 @@
   state, and with input gates so negative that the stabilizer ``m_t``
   sits far below zero, where ``max(|den|, exp(-m_t))`` is inf and h is 0
   in both packages; ``mlstm_recurrent_step`` (also against one chunkwise
-  step) and ``_slstm_block`` with and without an incoming state.
+  step) and ``_slstm_block`` with and without an incoming state; the
+  sLSTM's roofline surrogate under both packages' ``roofline_lowering``
+  (1e-5 of each output's max|value|); ``mlstm_chunkwise`` at the steps'
+  chunk 256 against the default 64 (1e-5).
 * ``apply``, ``prefill`` and lock-step ``decode_step`` on the same
   perturbed, bridged weights in fp32 (1e-4 on the logits and the caches,
   ``tests/test_torch_dense.py``'s tolerance) at the smoke width on two
@@ -146,6 +149,49 @@ def test_slstm_block_matches_reference(model, with_state):
     for name, a, w in zip("cnmh", stt, stj):
         assert a.dtype == torch.float32
         _close(a, w, atol=ATOL, what=name)
+
+
+def test_slstm_surrogate_matches_reference_under_roofline(model):
+    """The sLSTM's parallel surrogate, taken under both packages'
+    ``roofline_lowering``, against the reference's within 1e-5 of each
+    output's max|value|; the loop's values differ from it."""
+    from repro.models import runtime as jruntime
+    from repro_torch.models import runtime
+    cfg_j, cfg_t, pj, pt = model
+    where = "tail" if cfg_t.xlstm_pattern == ("s", "m") else "groups"
+    sj = pj[where]["blk0"] if where == "tail" else jax.tree_util.tree_map(
+        lambda a: a[0], pj["groups"]["blk7"])
+    st = (pt["tail"]["blk0"] if where == "tail"
+          else xlstm._index(pt["groups"]["blk7"], 0))
+    x = np.random.default_rng(17).standard_normal(
+        (2, 11, cfg_t.d_model)).astype(np.float32)
+    with jruntime.roofline_lowering():
+        yj, stj = jxlstm._slstm_block(sj, cfg_j, jnp.asarray(x))
+    with runtime.roofline_lowering():
+        yt, stt = xlstm._slstm_block(st, cfg_t, torch.from_numpy(x))
+    loop, _ = xlstm._slstm_block(st, cfg_t, torch.from_numpy(x))
+    for name, a, w in [("x + ffn", yt, yj)] + list(zip("cnmh", stt, stj)):
+        w = np.asarray(w)
+        assert a.dtype == torch.float32 and a.shape == w.shape, name
+        assert float(np.abs(a.numpy() - w).max()) <= \
+            1e-5 * max(float(np.abs(w).max()), 1e-30), name
+    assert float((loop - yt).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("carried", [False, True])
+def test_mlstm_chunk_64_equals_chunk_256(carried):
+    """The chunk the steps set (256) computes the chunk-64 default's h and
+    final state within 1e-5 of each one's max|value|, over a padded
+    length (the reference's own chunks 64 and 256 differ by 1.3e-5 of
+    max|h| on these inputs: float32 sums in another order)."""
+    b, h, dh, t = 2, 3, 8, 300
+    arrs = [torch.from_numpy(a) for a in _np_inputs(19, b, t, h, dh)]
+    st = (tuple(torch.from_numpy(a) for a in _np_state(20, b, h, dh))
+          if carried else None)
+    h64, s64 = xlstm.mlstm_chunkwise(*arrs, st, chunk=64)
+    h256, s256 = xlstm.mlstm_chunkwise(*arrs, st, chunk=256)
+    for a, w in [(h256, h64)] + list(zip(s256, s64)):
+        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 def _tokens(seed, b, s, vocab):
