@@ -32,9 +32,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    emptied before each call (``cold_ms``).  The verify kernels also run
    at K = 32 and 33 (128 and 132 query rows per kv head, in tiles), and
    at K = 1 each must equal its paged decode kernel at ``lengths + 1``.
-   The bf16 int8 paged decode kernel is also timed at 32 rows x 4096 with
-   1-4 splits forced (``int8_split_sweep``: what its split target rests
-   on).  Then every row the dense variants and the moe, vlm, hybrid and
+   The bf16 paged decode kernels, fp and int8 pages, are also timed at 32
+   rows x 4096 with 1-4 splits forced (``split_sweep``, through
+   ``kernels.tuning.autotune_paged_decode``: what the split targets rest
+   on), the winner recorded, the wrapper then run with that tuning and
+   held to the plain version, and the registry emptied.  Then every row the dense variants and the moe, vlm, hybrid and
    audio families run, at their head ratios (``RATIOS``: rep 9 = 36/4,
    rep 12 = 96/8, rep 8 = 64/8 and rep 7 = 28/4 for rows 1-4 with 2q and
    3q; rep 6 = 48/8, at D=64 rep 2 = 16/8 and at D=256 rep 16 = 16/1 for
@@ -875,45 +877,51 @@ def paged_case(name, bt, lengths, dt, *, iters=100, quant=False, page=PAGE,
         tol=TOL[dt], **scaled, **t, **bound(nbytes, flops, dt)), run, iters)
 
 
-def int8_split_sweep(splits=(1, 2, 3, 4), iters=20) -> dict:
-    """The bf16 int8 paged decode kernel at 32 rows x 4096 with its split
-    count forced -- the C entry point called directly, so no wrapper
-    counts these launches -- each held to the plain version and timed:
-    the measurement ``decode_split.TARGET_BLOCKS_INT8`` rests on."""
+def split_sweep(candidates=(1, 2, 3, 4), iters=20) -> dict:
+    """``kernels.tuning.autotune_paged_decode`` on the bf16 paged decode
+    kernels at 32 rows x 4096, fp and int8 pages: each candidate split
+    count forced and timed by CUDA events (the measurement
+    ``decode_split.TARGET_BLOCKS_INT8`` rests on), the winner recorded as
+    the shape's split target.  Then the wrapper, consulting the registry,
+    must run the winner's split count, and its output is held to the
+    plain version (``check``, ``check_splits``).  The registry is emptied
+    at the end, so the later phases run the constants."""
     import torch
-    from repro_torch.kernels import _build, paged_decode
-    from repro_torch.kernels.decode_split import split_span
-    from repro_torch.kernels.ref import paged_decode_quant_ref
+    from repro_torch.kernels import tuning
     lengths = [4096] * 32
     bt = fresh_tables(lengths)
-    b, maxp = bt.shape
-    q, pools, btc, ln = _pool(bt, lengths, 1, "bfloat16", 5, True)
-    want = paged_decode_quant_ref(q, *pools, btc, ln)
-    fn = _build.function("paged_decode", "paged_decode_int8_fwd",
-                         paged_decode._INT8_ARGTYPES)
+    b = bt.shape[0]
     out = {}
-    for z in splits:
-        work = torch.empty(b * H * z * (D + 2), device="cuda")
-        got = torch.empty_like(q)
-
-        def run():
-            err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
-                     btc.data_ptr(), ln.data_ptr(), got.data_ptr(),
-                     work.data_ptr(), 1, b, H, HKV, D, PAGE, maxp,
-                     pools[0].shape[0], z, split_span(maxp * PAGE, z),
-                     D ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"paged_decode_int8_fwd: CUDA error {err}")
-
-        run()
-        torch.cuda.synchronize()
-        err = check(f"paged int8 long, {z} splits", got, want, "bfloat16")
-        if z > 1:
-            check_splits(f"paged int8 long, {z} splits", got, want, z)
-        out[z] = dict(zip(("ms", "timed_by"), device_ms(run, iters)),
-                      max_abs_err=err)
-    log("  paged_decode_int8 long (B=32 x 4096, bf16) with its splits forced:"
-        + "".join(f" {z}: {r['ms']:.4f} ms" for z, r in out.items()))
+    try:
+        for quant in (False, True):
+            name = "int8" if quant else "fp"
+            kernel, plain = _paged_fns(False, quant)
+            q, pools, btc, ln = _pool(bt, lengths, 1, "bfloat16", 5, quant)
+            scales = (dict(k_scale=pools[2], v_scale=pools[3]) if quant
+                      else {})
+            times = {}
+            tuned = tuning.autotune_paged_decode(
+                q, *pools[:2], btc, ln, candidates=candidates, iters=iters,
+                times=times, **scales)
+            z = tuned.target_blocks // (b * HKV)
+            got = kernel(q, *pools, btc, ln)
+            torch.cuda.synchronize()
+            if kernel.last_splits != z:
+                raise AssertionError(f"paged {name} tuned: ran "
+                                     f"{kernel.last_splits} splits, the "
+                                     f"sweep's winner is {z}")
+            label = f"paged {name} long tuned"
+            want = plain(q, *pools, btc, ln)
+            out[name] = dict(ms=times, winner=z,
+                             target_blocks=tuned.target_blocks,
+                             max_abs_err=check(label, got, want, "bfloat16"),
+                             **check_splits(label, got, want, z))
+            log(f"  split sweep, paged_decode {name} pages (B=32 x 4096, "
+                f"bf16):" + "".join(f" {k}: {v:.4f} ms"
+                                     for k, v in times.items())
+                + f"; winner {z} splits (target {tuned.target_blocks})")
+    finally:
+        tuning.clear_tunings()
     return out
 
 
@@ -1077,7 +1085,7 @@ def phase_kernels():
             log(f"  paged_verify{'_int8' * quant} K=1 {dt}: max_err "
                 f"{err:.2e} against paged decode{' int8' * quant} at "
                 f"lengths + 1")
-    sweep = int8_split_sweep()
+    sweep = split_sweep()
     cases = {name: [with_ratios(r) for r in rows]
              for name, rows in cases.items()}
     for name, rows in cases.items():
@@ -1092,7 +1100,7 @@ def phase_kernels():
                 raise AssertionError(f"{name} {r['case']}: ran with "
                                      f"{r['splits']} split")
     log("kernel_cases " + json.dumps(cases))
-    log("int8_split_sweep " + json.dumps(sweep))
+    log("split_sweep " + json.dumps(sweep))
     return cases
 
 

@@ -33,6 +33,11 @@ a mesh dim name, or a tuple of names in mesh order (``("pod", "data")``).
   kernels, the recurrent cells).
 * ``shard_offset(x, dim)``: where this rank's shard of a DTensor starts
   along ``dim``.
+* ``submesh(mesh, names)`` / ``onto(t, sub)`` / ``lift(t, mesh)``: the
+  mesh of some of a mesh's dims, a DTensor moved onto it (gathered over
+  the other dims), and a result moved back: the form a step takes where
+  some mesh dims only replicate its work (rows that a data axis does not
+  divide).
 * ``abstract_mode()``: the active ``FakeTensorMode`` or a new one, for
   the dry run's and ``launch.specs``' abstract values.
 
@@ -136,11 +141,15 @@ def mesh_size(mesh, axes: Axes) -> int:
 @contextlib.contextmanager
 def mesh_context(mesh: DeviceMesh):
     """Enter ``mesh`` as the ambient mesh; plain tensors made inside
-    count as replicated where they meet DTensors."""
+    count as replicated where they meet DTensors.  Nested in another
+    (a sub-mesh's step), it leaves the outer block's implicit replication
+    on when it ends: DTensor's own context would switch it off."""
     from torch.distributed.tensor.experimental import implicit_replication
+    outer = DTensor._op_dispatcher._allow_implicit_replication
     tok = _MESH.set(mesh)
     try:
-        with implicit_replication():
+        with (contextlib.nullcontext() if outer
+              else implicit_replication()):
             yield mesh
     finally:
         _MESH.reset(tok)
@@ -234,6 +243,43 @@ def shard_offset(x: DTensor, dim: int) -> int:
             index = index * mesh.size(i) + coord[i]
             count *= mesh.size(i)
     return index * (x.shape[dim] // count)
+
+
+def submesh(mesh: DeviceMesh, names) -> DeviceMesh:
+    """The mesh of ``mesh``'s dims named in ``names``, in mesh order."""
+    keep = tuple(n for n in mesh.mesh_dim_names if n in names)
+    return mesh[keep if len(keep) > 1 else keep[0]]
+
+
+def onto(t: torch.Tensor, sub: DeviceMesh) -> torch.Tensor:
+    """The DTensor ``t`` as a DTensor on ``sub``, a sub-mesh of its mesh:
+    replicated first over the dims that ``sub`` lacks, its gradient on
+    the way back replicated over them too, as every rank along them
+    computes the same one.  A plain tensor is returned as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh, keep = t.device_mesh, sub.mesh_dim_names
+    pl = [p if n in keep else Replicate()
+          for n, p in zip(mesh.mesh_dim_names, t.placements)]
+    if list(t.placements) != pl:
+        t = t.redistribute(mesh, pl)
+    return DTensor.from_local(
+        t.to_local(grad_placements=pl), sub,
+        [p for n, p in zip(mesh.mesh_dim_names, pl) if n in keep],
+        run_check=False, shape=t.shape, stride=t.stride())
+
+
+def lift(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """A DTensor on a sub-mesh of ``mesh`` (``onto``) as a DTensor on
+    ``mesh``, replicated over the dims the sub-mesh lacks; no gradient
+    flows back through it."""
+    if not isinstance(t, DTensor):
+        return t
+    own = dict(zip(t.device_mesh.mesh_dim_names, t.placements))
+    return DTensor.from_local(
+        t.to_local(), mesh, [own.get(n, Replicate())
+                             for n in mesh.mesh_dim_names],
+        run_check=False, shape=t.shape, stride=t.stride())
 
 
 # ----------------------------------------------------------- abstract values

@@ -4,7 +4,8 @@ The tensor-core decode body (``csrc/decode_mma.cuh``) runs one block per
 (kv head, batch row, split).  Split ``z`` of ``splits`` walks a fixed range
 of whole 64-position chunks of the row's ``n`` positions (``split_ranges``;
 the wrappers pass the kernel its length, ``split_span``), and a second
-kernel merges the splits' partial softmax sums.  The host chooses
+kernel merges the splits' partial softmax sums.  The paged wrappers' target
+may be tuned per shape (``kernels.tuning``).  The host chooses
 ``splits`` from the batch, the kv heads and ``n`` alone: the lengths lie on
 the card, and reading them would synchronise.  The decode wrappers call
 ``decode_splits`` (the int8-page one, and the contiguous one at head
@@ -26,7 +27,7 @@ TARGET_BLOCKS_D256 = 132
 # the int8-page body (70 KB of shared memory: three blocks share an SM) is
 # bound by the latency of its walk on long rows and gains from more, shorter
 # blocks: about two waves of three blocks on each SM (3 splits of 32 rows x
-# 4096, where 1 and 2 are slower: chip_smoke.py's int8_split_sweep, PERF.md)
+# 4096, where 1 and 2 are slower: chip_smoke.py's split_sweep, PERF.md)
 TARGET_BLOCKS_INT8 = 792
 MIN_CHUNKS = 4        # chunks a split walks, at the least (but the last)
 # a split output is held, besides the absolute bf16 tolerance, to this share

@@ -190,13 +190,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                 block_tables: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                 splits: Optional[int] = None) -> torch.Tensor:
     """Block-table paged decode.  q: (B, 1, H, D); pools (P, page, Hkv, D);
-    block_tables: (B, maxp) int32; lengths: (B,) int32."""
+    block_tables: (B, maxp) int32; lengths: (B,) int32.  ``splits`` (the
+    reference's ``pages_per_step`` override) forces the bf16 kernel's
+    split count over ``kernels.tuning``'s; the plain version ignores
+    it."""
     if _on_cuda(q):
         forbid_grad("paged_decode", q, k_pool, v_pool)
-        return paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths)
+        return paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths,
+                                 splits=splits)
     return paged_decode_ref(q, k_pool, v_pool, block_tables, lengths)
 
 
@@ -206,7 +210,9 @@ def decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     """Contiguous decode.  q: (B, 1, H, D); caches (B, S, Hkv, D);
     lengths: (B,) int32, positions ``max(0, len - window) <= k < len``
     valid.  A DTensor runs on its local batch rows and heads over the
-    whole cache sequence."""
+    whole cache sequence.  Its split target is fixed by the head width
+    (``decode_split.target_blocks``): no entry in ``kernels.tuning``, as
+    the reference's contiguous decode takes no tuning."""
     if isinstance(q, DTensor):
         mesh = q.device_mesh
         dims = _attention_dims(mesh, q.shape[0],
@@ -231,7 +237,9 @@ def paged_verify(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     """Block-table multi-token verify.  q: (B, K, H, D); pools
     (P, page, Hkv, D); block_tables: (B, maxp) int32; lengths: (B,) int32
     before the K new tokens, query j attending positions
-    ``<= lengths[b] + j``."""
+    ``<= lengths[b] + j``.  No split axis, so no ``splits`` and no entry
+    in ``kernels.tuning``, as the reference's verify takes its tuning
+    only for the pages a step reads."""
     if _on_cuda(q):
         forbid_grad("paged_verify", q, k_pool, v_pool)
         return paged_verify_cuda(q, k_pool, v_pool, block_tables, lengths)
@@ -241,15 +249,17 @@ def paged_verify(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
 def paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, k_scale: torch.Tensor,
                        v_scale: torch.Tensor, block_tables: torch.Tensor,
-                       lengths: torch.Tensor) -> torch.Tensor:
+                       lengths: torch.Tensor, *,
+                       splits: Optional[int] = None) -> torch.Tensor:
     """Int8 block-table paged decode: int8 pools (P, page, Hkv, D) plus
     bf16 scale pools (P, page, Hkv, 1) riding the same table, dequantized
-    in the kernel.  q, tables and lengths as in ``paged_decode``."""
+    in the kernel.  q, tables, lengths and ``splits`` as in
+    ``paged_decode`` (the int8 key of ``kernels.tuning``)."""
     if _on_cuda(q):
         forbid_grad("paged_decode_quant", q, k_pool, v_pool, k_scale,
                     v_scale)
         return paged_decode_int8_cuda(q, k_pool, v_pool, k_scale, v_scale,
-                                      block_tables, lengths)
+                                      block_tables, lengths, splits=splits)
     return paged_decode_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
                                   block_tables, lengths)
 
@@ -260,7 +270,7 @@ def paged_verify_quant(q: torch.Tensor, k_pool: torch.Tensor,
                        lengths: torch.Tensor) -> torch.Tensor:
     """Int8 block-table multi-token verify: pools and scales as in
     ``paged_decode_quant``, q, tables and lengths as in
-    ``paged_verify``."""
+    ``paged_verify`` (no split axis, no tuning)."""
     if _on_cuda(q):
         forbid_grad("paged_verify_quant", q, k_pool, v_pool, k_scale,
                     v_scale)

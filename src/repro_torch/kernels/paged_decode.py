@@ -9,7 +9,9 @@ takes pools of q's dtype; ``paged_decode_int8_cuda`` takes int8 pools with
 bf16 scale pools (the TPU kernel's ``k_scale``/``v_scale``), dequantized in
 the kernel.  With q in bfloat16 both run the tensor-core body and cut each
 row's table across ``decode_split.decode_splits`` blocks when the batch is
-too small to fill the card.  Their plain versions are
+too small to fill the card: toward the split target recorded for the
+shape in ``kernels.tuning``, else the constant, or at a split count the
+caller forces (``splits``).  Their plain versions are
 ``kernels.ref.paged_decode_ref`` and ``paged_decode_quant_ref``;
 ``kernels.ops.paged_decode`` and ``paged_decode_quant`` pick between kernel
 and plain version by the tensors' device.
@@ -18,12 +20,12 @@ and plain version by the tensors' device.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.decode_split import (TARGET_BLOCKS,
+from repro_torch.kernels import _build, tuning
+from repro_torch.kernels.decode_split import (CHUNK, TARGET_BLOCKS,
                                               TARGET_BLOCKS_INT8,
                                               decode_splits, split_span)
 from repro_torch.kernels.flash_attention import (DTYPES, check_cuda_inputs,
@@ -85,13 +87,29 @@ def check_int8_pools(q: torch.Tensor, k_pool: torch.Tensor,
                              f"{s.is_contiguous()}")
 
 
-def _splits_and_workspace(q: torch.Tensor, hkv: int, n: int, target: int):
-    """The bf16 kernels' splits of a row's ``n`` positions toward ``target``
-    blocks (fp32 takes 1) and, with more than one, their fp32 workspace
-    (uninitialised: every split writes its partial)."""
+def _splits_and_workspace(q: torch.Tensor, page: int, hkv: int, n: int,
+                          int8: bool, splits: Optional[int] = None):
+    """The splits of a row's ``n`` positions and, with more than one,
+    their fp32 workspace (uninitialised: every split writes its partial).
+    ``splits`` forced by the caller runs as given: 1 to the row's chunks
+    in bf16, 1 in fp32 (its body never splits), else ``ValueError``.
+    Otherwise bf16 splits toward the target that ``kernels.tuning``
+    records for ``(page, D, Hkv, int8)``, or ``TARGET_BLOCKS`` /
+    ``TARGET_BLOCKS_INT8``; fp32 takes 1."""
     b, _, h, d = q.shape
-    splits = (decode_splits(b, hkv, n, target) if q.dtype == torch.bfloat16
-              else 1)
+    bf16 = q.dtype == torch.bfloat16
+    if splits is not None:
+        most = -(-n // CHUNK) if bf16 else 1
+        if not 1 <= splits <= most:
+            raise ValueError(f"{splits} splits of {n} positions in "
+                             f"{q.dtype}: the kernel runs 1 to {most}")
+    elif bf16:
+        target = tuning.tuning_for(page, d, hkv, int8=int8).target_blocks
+        if target is None:
+            target = TARGET_BLOCKS_INT8 if int8 else TARGET_BLOCKS
+        splits = decode_splits(b, hkv, n, target)
+    else:
+        splits = 1
     work = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
     return splits, work
@@ -99,10 +117,12 @@ def _splits_and_workspace(q: torch.Tensor, hkv: int, n: int, target: int):
 
 def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                       v_pool: torch.Tensor, block_tables: torch.Tensor,
-                      lengths: torch.Tensor) -> torch.Tensor:
+                      lengths: torch.Tensor, *,
+                      splits: Optional[int] = None) -> torch.Tensor:
     """Launch the paged decode kernel.  q: (B, 1, H, D); pools
     (P, page, Hkv, D) of q's dtype; block_tables: (B, maxp) int32;
-    lengths: (B,) int32 -> (B, 1, H, D).
+    lengths: (B,) int32 -> (B, 1, H, D).  ``splits`` forces the split
+    count (``_splits_and_workspace``), over the recorded tuning.
 
     Table entries must lie in [0, P): JAX clamps an out-of-range gather,
     CUDA would read outside the pool.  The kernel checks every entry it
@@ -117,7 +137,8 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     check_cuda_inputs((q, k_pool, v_pool, block_tables, lengths), q.dtype)
     b, _, h, d = q.shape
     maxp = block_tables.shape[1]
-    splits, work = _splits_and_workspace(q, hkv, maxp * page, TARGET_BLOCKS)
+    splits, work = _splits_and_workspace(q, page, hkv, maxp * page, False,
+                                         splits)
     out = torch.empty_like(q)
     fn = _build.function("paged_decode", "paged_decode_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -143,12 +164,14 @@ paged_decode_cuda.merge_launches = 0   # launches that also merged splits
 def paged_decode_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, k_scale: torch.Tensor,
                            v_scale: torch.Tensor, block_tables: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor, *,
+                           splits: Optional[int] = None) -> torch.Tensor:
     """Launch the int8 paged decode kernel.  q: (B, 1, H, D) fp32 or bf16;
     pools (P, page, Hkv, D) int8; scale pools (P, page, Hkv, 1) bf16;
     tables and lengths as in ``paged_decode_cuda`` -> (B, 1, H, D) of q's
     dtype.  In bf16 it splits rows as ``paged_decode_cuda`` does, toward
-    ``TARGET_BLOCKS_INT8`` blocks."""
+    the int8 key's tuning or ``TARGET_BLOCKS_INT8`` blocks; ``splits``
+    forces the count."""
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"bad shapes q{tuple(q.shape)}")
     n_pages, page, hkv = check_paged_inputs(q, k_pool, v_pool, block_tables,
@@ -157,8 +180,8 @@ def paged_decode_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     check_cuda_inputs((q, k_pool, v_pool, block_tables, lengths), q.dtype)
     b, _, h, d = q.shape
     maxp = block_tables.shape[1]
-    splits, work = _splits_and_workspace(q, hkv, maxp * page,
-                                         TARGET_BLOCKS_INT8)
+    splits, work = _splits_and_workspace(q, page, hkv, maxp * page, True,
+                                         splits)
     out = torch.empty_like(q)
     fn = _build.function("paged_decode", "paged_decode_int8_fwd",
                          _INT8_ARGTYPES)

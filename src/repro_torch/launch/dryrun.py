@@ -343,7 +343,7 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         }
         if shp.kind == "train":
             report["microbatches"] = kw.get("microbatches") or \
-                microbatches_for(cfg, shp, mesh)
+                microbatches_for(cfg, shp)
         if not with_roofline:
             return report
         t0 = time.time()

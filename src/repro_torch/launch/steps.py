@@ -43,21 +43,13 @@ def _apply_kw(cfg: ModelConfig) -> dict:
     return {"chunk": _SSM_CHUNK} if cfg.family == "ssm" else {}
 
 
-def microbatches_for(cfg: ModelConfig, shape: _InputShape, mesh=None
-                     ) -> int:
+def microbatches_for(cfg: ModelConfig, shape: _InputShape) -> int:
     """The architecture's microbatch count, halved until it divides the
-    rows of the batch -- under ``mesh``, each rank's rows (the batch dim
-    over its axes, as ``sharding.batch_spec`` shards it), as every rank
-    takes an equal slice of every microbatch.  Where the reference's
-    GSPMD spreads a microbatch of fewer rows than shards, the port halves
-    the count: dbrx-132b, qwen3-32b and command-r-plus-104b train_4k run
-    4 microbatches, not 8, on the (2, 32, 8) mesh's 4 rows per rank."""
-    rows = shape.global_batch
-    if mesh is not None:
-        rows //= meshenv.mesh_size(
-            mesh, sharding.batch_spec((rows,), mesh)[0])
+    global batch (the reference's count).  Under a mesh a microbatch
+    whose rows the batch axes do not divide runs with its rows whole
+    along the axes that do not (``train_step._microbatch_rows``)."""
     mb = _TRAIN_MICROBATCHES.get(cfg.name.replace("-window", ""), 4)
-    while rows % mb != 0:
+    while shape.global_batch % mb != 0:
         mb //= 2
     return max(mb, 1)
 
@@ -68,16 +60,11 @@ def build_train_step(cfg: ModelConfig, shape: _InputShape,
                      skip_masked_blocks: bool = False):
     """``train_step(state, batch) -> (state, metrics)`` with AdamW's
     defaults and ``microbatches``, or else the architecture's count
-    under the mesh the step runs in (``microbatches_for``)."""
+    (``microbatches_for``)."""
     del q_chunk, kv_chunk, skip_masked_blocks
-
-    def train_step(state, batch):
-        n = microbatches or microbatches_for(cfg, shape,
-                                             meshenv.current_mesh())
-        return make_train_step(cfg, AdamWConfig(), microbatches=n,
-                               **_apply_kw(cfg))(state, batch)
-
-    return train_step
+    return make_train_step(cfg, AdamWConfig(),
+                           microbatches=microbatches or microbatches_for(
+                               cfg, shape), **_apply_kw(cfg))
 
 
 def build_prefill_step(cfg: ModelConfig, shape: _InputShape,

@@ -10,12 +10,17 @@ zero gradient, as JAX gives it: it still decays, and its moments still
 update.  Under a mesh the state and the batch may be DTensors
 (``launch.sharding``): the same code runs, the collectives coming from
 DTensor, and the microbatches hold the reference's rows
-(``_regroup_rows``).  ``state_shape`` is the dry run's abstract train
+(``_regroup_rows``).  Rows that the batch axes do not divide, a
+microbatch's included, are sharded over the axes that divide them and
+run whole on every rank along the rest (``_replica_axes``: the step runs
+on the mesh of the other dims, where GSPMD would pad the rows).
+``state_shape`` is the dry run's abstract train
 state, made of fake tensors (the reference's ``jax.eval_shape``).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Dict, Tuple
 
@@ -23,6 +28,7 @@ import torch
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.compat import meshenv
 from repro_torch.models import common as cm
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
@@ -66,18 +72,83 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, aux_weight: float = 0.01,
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
+def _replica_axes(batch: Dict) -> Tuple[str, ...]:
+    """The batch axes (``cm.BATCH_AXES``, extent above 1) of a DTensor
+    batch's mesh that do not shard its rows: along them every rank holds
+    the same rows.  ``()`` for a plain batch."""
+    x = next((v for v in batch.values() if isinstance(v, DTensor)), None)
+    if x is None:
+        return ()
+    mesh = x.device_mesh
+    return tuple(n for n, size, p in zip(mesh.mesh_dim_names, mesh.shape,
+                                         x.placements)
+                 if n in cm.BATCH_AXES and size > 1 and not p.is_shard(0))
+
+
 def loss_and_grads(params, cfg: ModelConfig, batch: Dict, **apply_kw):
     """(loss, parts, grads): ``loss_fn`` on ``batch`` (``apply_kw`` to the
     family's ``apply``) and its gradient
     with respect to every leaf of ``params`` (a tree of the same
     structure; zero where the loss does not reach), taken through
-    aliases of the leaves, so the caller's params never require grad."""
+    aliases of the leaves, so the caller's params never require grad.
+
+    Under a mesh with batch axes that do not shard the rows
+    (``_replica_axes``), ``loss_fn`` runs on the mesh of the other dims:
+    params and batch moved there (``meshenv.onto``: gathered over the
+    replica axes, each rank along them computing the same gradient),
+    the results moved back.  Left on the whole mesh, DTensor's backward
+    may split a contraction over such an axis and reduce-scatter the
+    partial sum onto rows it does not divide, which it cannot view."""
     leaves, build = flatten(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
-    loss, parts = loss_fn(build(live), cfg, batch, **apply_kw)
+    replicas = _replica_axes(batch)
+    if not replicas:
+        loss, parts = loss_fn(build(live), cfg, batch, **apply_kw)
+    else:
+        mesh = next(v for v in batch.values()
+                    if isinstance(v, DTensor)).device_mesh
+        sub = meshenv.submesh(mesh, [n for n in mesh.mesh_dim_names
+                                     if n not in replicas])
+        with meshenv.mesh_context(sub):
+            loss, parts = loss_fn(
+                build([meshenv.onto(p, sub) for p in live]), cfg,
+                {k: meshenv.onto(v, sub) for k, v in batch.items()},
+                **apply_kw)
     grads = torch.autograd.grad(loss, live, materialize_grads=True)
-    return (loss.detach(), {k: v.detach() for k, v in parts.items()},
-            build(list(grads)))
+    loss, parts = loss.detach(), {k: v.detach() for k, v in parts.items()}
+    if replicas:
+        loss = meshenv.lift(loss, mesh)
+        parts = {k: meshenv.lift(v, mesh) for k, v in parts.items()}
+    return loss, parts, build(list(grads))
+
+
+def _row_shards(mb: int, extents) -> Tuple[int, ...]:
+    """The positions in ``extents`` (the extents of a batch's row axes,
+    in mesh order) of the largest set of axes whose product divides
+    ``mb`` rows: the axes a microbatch of ``mb`` rows is sharded over."""
+    sets = (c for r in range(len(extents) + 1)
+            for c in itertools.combinations(range(len(extents)), r)
+            if mb % math.prod(extents[i] for i in c) == 0)
+    return max(sets, key=lambda c: math.prod(extents[i] for i in c))
+
+
+def _microbatch_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """A DTensor batch laid out for ``n`` microbatches: its rows sharded
+    over the row axes that divide a microbatch's rows (``_row_shards``;
+    replicated over the rest), then regrouped (``_regroup_rows``).  A
+    microbatch of fewer rows than the shards, or of rows they do not
+    divide, so runs whole along the axes dropped (``loss_and_grads``),
+    where the reference's GSPMD pads it.  A plain tensor is returned as
+    it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    dims = [i for i, p in enumerate(x.placements) if p.is_shard()]
+    keep = _row_shards(x.shape[0] // n, [mesh.size(i) for i in dims])
+    if len(keep) < len(dims):
+        names = tuple(mesh.mesh_dim_names[dims[i]] for i in keep)
+        x = meshenv.with_sharding_constraint(x, (names or None,))
+    return _regroup_rows(x, n)
 
 
 def _regroup_rows(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -143,16 +214,38 @@ def _split_microbatch(batch: Dict, n: int, i: int) -> Dict:
     return {k: slc(v) for k, v in batch.items()}
 
 
+def microbatch_grads(params, cfg: ModelConfig, batch: Dict,
+                     microbatches: int = 1, **apply_kw):
+    """(loss, parts, grads) of the train step before its update: with
+    ``microbatches`` > 1 the gradients of equal slices of the (global)
+    batch dimension, accumulated in float32 and averaged, each rank's
+    rows of a DTensor batch laid out first (``_microbatch_rows``), and
+    ``parts`` are ``ce`` the mean total loss and ``aux`` 0, as the
+    reference reports them; with one, ``loss_and_grads``."""
+    if microbatches == 1:
+        return loss_and_grads(params, cfg, batch, **apply_kw)
+    batch = {k: _microbatch_rows(v, microbatches) for k, v in batch.items()}
+    leaves, build = flatten(params)
+    acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+    loss = acc[0].new_zeros(())
+    for i in range(microbatches):
+        mb = _split_microbatch(batch, microbatches, i)
+        mb_loss, _, g = loss_and_grads(params, cfg, mb, **apply_kw)
+        for a, gi in zip(acc, flatten(g)[0]):
+            a.add_(gi.float())
+        loss = loss + mb_loss
+    loss = loss / microbatches
+    return (loss, {"ce": loss, "aux": torch.zeros_like(loss)},
+            build([a.div_(microbatches) for a in acc]))
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     microbatches: int = 1, **apply_kw):
     """Returns train_step(state, batch) -> (state, metrics).
 
     state = {"params": ..., "opt": ...}, updated in place
-    (``adamw_update``); batch contains "labels" plus model inputs.  With
-    microbatches > 1, gradients are accumulated over equal slices of the
-    (global) batch dimension, each rank's rows of a DTensor batch split
-    as evenly (``_regroup_rows``), and the metrics report ``ce`` as the
-    mean total loss and ``aux`` as 0, as the reference does.  Of
+    (``adamw_update``) with the gradients of ``microbatch_grads``; batch
+    contains "labels" plus model inputs.  Of
     ``apply_kw``, xlstm's ``chunk`` goes to ``apply``; the reference's
     attention chunks (``q_chunk``, ``kv_chunk``, ``skip_masked_blocks``)
     are XLA settings with no counterpart in the port (the kernels tile on
@@ -161,24 +254,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
     def train_step(state, batch):
         params = state["params"]
-        if microbatches == 1:
-            loss, parts, grads = loss_and_grads(params, cfg, batch,
-                                                **apply_kw)
-        else:
-            batch = {k: _regroup_rows(v, microbatches)
-                     for k, v in batch.items()}
-            leaves, build = flatten(params)
-            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-            loss = acc[0].new_zeros(())
-            for i in range(microbatches):
-                mb = _split_microbatch(batch, microbatches, i)
-                mb_loss, _, g = loss_and_grads(params, cfg, mb, **apply_kw)
-                for a, gi in zip(acc, flatten(g)[0]):
-                    a.add_(gi.float())
-                loss = loss + mb_loss
-            grads = build([a.div_(microbatches) for a in acc])
-            loss = loss / microbatches
-            parts = {"ce": loss, "aux": torch.zeros_like(loss)}
+        loss, parts, grads = microbatch_grads(params, cfg, batch,
+                                              microbatches, **apply_kw)
         new_params, new_opt, om = adamw_update(opt_cfg, params, grads,
                                                state["opt"])
         metrics = {"loss": loss, **parts, **om}

@@ -202,19 +202,25 @@ def test_cache_shardings_walk_the_tail_list():
                for a, b in zip(back["tail"], real["tail"]))
 
 
-@pytest.mark.parametrize("multi_pod,want", [(False, 8), (True, 4)])
+@pytest.mark.parametrize("multi_pod,want", [(False, 8), (True, 8)])
 def test_microbatches_divide_each_ranks_rows(multi_pod, want):
     """train_4k's 256 rows are 8 a rank on (32, 8) and 4 on (2, 32, 8):
-    the 8-microbatch archs halve to 4 there, so that no rank's microbatch
-    is empty; with no mesh the count is the reference's."""
+    the 8-microbatch archs keep the reference's 8 on both.  On (2, 32, 8)
+    a microbatch's 32 rows, fewer than the 64 row shards, lie over
+    ``data`` alone (``train_step._row_shards``): one row of each
+    microbatch on each rank, as on (32, 8)."""
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import microbatches_for
+    from repro_torch.training.train_step import _row_shards
     shp = _INPUT_SHAPES["train_4k"]
     with meshenv.fake_process_group(512 if multi_pod else 256):
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        extents = [s for n, s in zip(mesh.mesh_dim_names, mesh.shape)
+                   if n != "model"]
         for arch in ("dbrx-132b", "qwen3-32b", "command-r-plus-104b"):
-            cfg = get_config(arch, "train_4k")
-            assert microbatches_for(cfg, shp) == 8
-            assert microbatches_for(cfg, shp, mesh) == want
-        assert microbatches_for(get_config("qwen3-8b", "train_4k"), shp,
-                                mesh) == 4
+            n = microbatches_for(get_config(arch, "train_4k"), shp)
+            assert n == want
+            keep = _row_shards(shp.global_batch // n, extents)
+            assert [extents[i] for i in keep] == [32]
+        assert microbatches_for(get_config("qwen3-8b", "train_4k"),
+                                shp) == 4

@@ -68,11 +68,11 @@ def _inputs_of(batch):
     return {k: v for k, v in batch.items() if k != "labels"}
 
 
-def _port_steps(cfg, params, batch, mesh, micro=None, train=True):
+def _port_steps(cfg, params, batch, mesh, micro=None):
     """The port's three steps on ``params`` (plain, or sharded on
     ``mesh``): prefill logits, ``STEPS`` greedy serve steps and the cache
-    after them, and where ``train``, the train step's metrics and the
-    gradients of ``loss_and_grads``."""
+    after them, the train step's metrics and the gradients of
+    ``loss_and_grads``."""
     from repro_torch.compat import meshenv
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.steps import (build_prefill_step,
@@ -111,8 +111,6 @@ def _port_steps(cfg, params, batch, mesh, micro=None, train=True):
         out["serve"], out["tokens"] = torch.stack(logits), torch.stack(
             toks_out)
         out["cache"] = sh.gather(cache)
-    if not train:
-        return out
     with ctx():
         _, _, grads = loss_and_grads(put(_tree_map(torch.clone, params),
                                          pspecs), cfg, put(batch, bspecs))
@@ -237,18 +235,16 @@ def _leaves(t, p=""):
     return [(p[:-1], t)]
 
 
-def check_against_plain(results, case, train=True):
+def check_against_plain(results, case):
     """Each rank's sharded steps of ``case`` against its unsharded ones:
-    logits within 1e-4 of max|logit|, greedy tokens equal, and where
-    ``train``, every gradient within 1e-4 of its leaf's max|g|, the loss
-    and grad norm within 1e-4 relative."""
+    logits within 1e-4 of max|logit|, greedy tokens equal, every gradient
+    within 1e-4 of its leaf's max|g|, the loss and grad norm within 1e-4
+    relative."""
     for rank, res in enumerate(results):
         got, want = res[case]["sharded"], res[case]["plain"]
         assert _rel(got["prefill"], want["prefill"]) <= 1e-4, rank
         assert _rel(got["serve"], want["serve"]) <= 1e-4, rank
         assert torch.equal(got["tokens"], want["tokens"]), rank
-        if not train:
-            continue
         for (path, g), (_, w) in zip(_leaves(got["grads"]),
                                      _leaves(want["grads"])):
             assert _rel(g, w) <= 1e-4, (rank, path)

@@ -15,15 +15,13 @@ takes the second form for the heads (4 heads over a ``model`` of 8).
   relative, and every leaf of the cache within 1e-4 of the unsharded
   one's largest |value|.
 * ``rows``: 3 batch rows, so ``data`` (2) does not divide them and every
-  rank runs the cells on every row.  The prefill and serve steps (logits,
-  tokens, cache) are held as above.  The gradients are held at the cells
+  rank runs the cells on every row.  The prefill, the serve steps and the
+  train step (which runs the rows whole on the ``model`` sub-mesh) are
+  held as above.  The gradients are also held at the cells
   (``xlstm._mlstm_cell``, ``xlstm._slstm_sharded``) on DTensors of 3 rows
   and 4 heads over ``model``: every input's gradient, and the sLSTM's
   recurrent matrices' (replicated over ``data`` here, where split rows
-  make it a partial sum), within 1e-5 of its max|g|.  The whole train
-  step is not run at 3 rows: DTensor's backward of the MLP reduce-scatters
-  a gradient partial over ``data`` onto the 3 rows and then cannot
-  flatten the uneven shard (every family; ROADMAP Queue C).
+  make it a partial sum), within 1e-5 of its max|g|.
 """
 
 import pytest
@@ -106,12 +104,11 @@ def _rank_main(rank, world, store, inp, out):
         for case, d in data.items():
             cfg = get_config(d["arch"]).smoke().replace(dtype="float32",
                                                         **d["replace"])
-            train = case != "rows"
             res[case] = {
                 "sharded": _port_steps(cfg, d["params"], d["batch"], mesh,
-                                       micro=1, train=train),
+                                       micro=1),
                 "plain": _port_steps(cfg, d["params"], d["batch"], None,
-                                     micro=1, train=train)}
+                                     micro=1)}
         res["cells"] = _cells(mesh)
     torch.save(res, f"{out}.{rank}")
 
@@ -124,7 +121,7 @@ def grid(tmp_path_factory):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_uneven_layout_steps_equal_the_unsharded_port(grid, case):
-    check_against_plain(grid, case, train=case != "rows")
+    check_against_plain(grid, case)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
