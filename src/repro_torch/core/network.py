@@ -38,7 +38,7 @@ from repro_torch.core.gossip import gossip_round
 from repro_torch.core.ledger import (CreditChain, CreditOp, LedgerError, SharedLedger)
 from repro_torch.core.node import Node, QueuedRequest
 from repro_torch.core.pos import pos_sample, pos_sample_one
-from repro_torch.obs import MetricsRegistry, get_tracer
+from repro_torch.obs import get_tracer
 from repro_torch.sim.events import EventLoop
 from repro_torch.sim.executor import digest_staleness_weight, prefix_fingerprint_id
 from repro_torch.sim.metrics import CompletedRequest, MetricsCollector
@@ -88,8 +88,7 @@ class Network:
                  max_probes: int = 3,
                  power_of_two: bool = False,
                  routing: str = "gossip",
-                 cache_affinity: bool = True,
-                 registry: Optional[MetricsRegistry] = None) -> None:
+                 cache_affinity: bool = True) -> None:
         assert mode in ("single", "centralized", "decentralized")
         assert ledger_mode in ("shared", "chain")
         assert routing in ("gossip", "probe")
@@ -134,13 +133,10 @@ class Network:
         # "dropped" queued requests lost to churn/shutdown drains,
         # "giveup" offload attempts that found every candidate saturated
         # (DESIGN.md §Observability).  The scaling bench derives routing
-        # messages-per-request from these; every increment also feeds the
-        # labeled ``repro.obs`` registry so snapshots stay auditable.
+        # messages-per-request from these.
         self.msg_counts: Dict[str, int] = {
             "probe": 0, "dispatch": 0, "bounce": 0, "gossip": 0,
             "dropped": 0, "giveup": 0}
-        self.registry = registry if registry is not None \
-            else MetricsRegistry()
 
         # seed the treasury that funds duel bonuses / judge fees
         self._apply_ops([CreditOp("mint", "", _TREASURY, 1e9)], proposer=None)
@@ -236,24 +232,6 @@ class Network:
     # ------------------------------------------------------- event accounting
     def _count_msg(self, kind: str, n: int = 1) -> None:
         self.msg_counts[kind] += n
-        self.registry.counter("net.messages", kind=kind).inc(n)
-
-    def _count_dropped(self, reason: str) -> None:
-        """A queued request fell out of a queue (churn rerouting, or a
-        shutdown drain with nobody online).  Previously invisible; the
-        event feeds both the ``dropped`` key next to ``msg_counts`` and a
-        labeled registry counter so SLO denominators can be audited
-        against completions end to end (DESIGN.md §Observability)."""
-        self.msg_counts["dropped"] += 1
-        self.registry.counter("net.dropped", reason=reason).inc()
-
-    def _count_giveup(self, path: str) -> None:
-        """An offload attempt found every candidate saturated or burned
-        its probe budget; the request falls back to the origin's local
-        queue.  Counted so 'how often did routing fail to help' is a
-        first-class number rather than a diff of other counters."""
-        self.msg_counts["giveup"] += 1
-        self.registry.counter("net.giveup", path=path).inc()
 
     # -------------------------------------------------------------- workflow
     def submit(self, req: Request) -> None:
@@ -274,7 +252,7 @@ class Network:
         online = [n for n in self.nodes.values() if n.online]
         if not online:
             if self._shutdown:
-                self._count_dropped("shutdown")
+                self._count_msg("dropped")
                 return   # draining with nobody online: drop, don't spin
             self.loop.schedule(5.0,
                                lambda: self.resubmit_elsewhere(req, enq))
@@ -399,7 +377,7 @@ class Network:
         online = [n for n in self.nodes.values() if n.online]
         if not online:
             if self._shutdown:
-                self._count_dropped("shutdown")
+                self._count_msg("dropped")
                 return   # draining with nobody online: drop, don't spin
             self.loop.schedule(
                 5.0, lambda: self._dispatch_centralized(req, enq))
@@ -457,7 +435,7 @@ class Network:
                         for nid in eligible)
         best_pr = scored[0][0]
         if best_pr >= 1.0:
-            self._count_giveup("gossip")
+            self._count_msg("giveup")
             return False
         enq = self.loop.now if enqueued_at is None else enqueued_at
         near = [nid for pr, nid in scored if pr - best_pr < _DIGEST_TIE_EPS]
@@ -481,7 +459,7 @@ class Network:
                         and (best is None or live < best[0])):
                     best = (live, cand)
             if best is None:
-                self._count_giveup("gossip")
+                self._count_msg("giveup")
                 return False
             pick = best[1]
             self._count_msg("dispatch")
@@ -624,7 +602,7 @@ class Network:
                     QueuedRequest(req, enq, delegated=True,
                                   origin_node=origin.id)))
                 return True
-        self._count_giveup("probe")
+        self._count_msg("giveup")
         return False
 
     @property
@@ -645,7 +623,7 @@ class Network:
         double-record the user request or run a judge against the wrong
         model.
         """
-        self._count_dropped("offline")
+        self._count_msg("dropped")
         tr = get_tracer()
         if tr.enabled:
             tr.event("route.drop", qr.req.rid, node.id, self.loop.now,

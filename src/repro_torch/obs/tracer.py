@@ -18,8 +18,10 @@ Two recording styles:
   ``EventLoop.now`` and the request's stamped times.
 * **Measured blocks** (:meth:`Tracer.wall`) for the serving domain: a
   context manager that ALWAYS measures ``perf_counter`` — its ``dt``
-  feeds the ``EngineStats`` wall-time accumulators whether or not tracing
-  is on — and appends a span only when the tracer is enabled.  This is
+  feeds the ``EngineStats`` accumulators (``decode_wall_s``,
+  ``decode_launch_s``, ...) whether or not tracing is on — and appends a
+  span only when the tracer is enabled.  Blocks nest: a step's
+  ``engine.decode_step`` holds its ``engine.decode.*`` parts.  This is
   the one sanctioned way to time a block in instrumented layers; the
   ``obs-lint/wall-clock`` rule (DESIGN.md §7) keeps raw
   ``time.perf_counter()`` calls from creeping back in.
@@ -104,17 +106,6 @@ class Tracer:
     # ------------------------------------------------------------- reading
     def clear(self) -> None:
         self.spans.clear()
-
-    def by_request(self) -> Dict[str, List[Span]]:
-        """Spans grouped by request id (batch-scoped ``rid == ""`` spans
-        excluded), each group sorted by start time."""
-        out: Dict[str, List[Span]] = {}
-        for s in self.spans:
-            if s.rid:
-                out.setdefault(s.rid, []).append(s)
-        for spans in out.values():
-            spans.sort(key=lambda s: (s.t0, s.t1))
-        return out
 
 
 class WallSpan:

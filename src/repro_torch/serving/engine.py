@@ -64,6 +64,16 @@ synchronisation, because they feed ``EngineStats`` and so
 ``EngineExecutor.estimate``.  Unlike the reference, whose arrays are
 immutable, the slot cache, the draft cache and the page pools are updated
 in place.
+
+Beyond the reference's spans, a step names its own parts, so that every
+stretch of host time in it has a cause: ``engine.sample`` (sampling, the
+token readback, appending and retiring rows), ``engine.admit`` (an
+admission that finds a queued request, ``engine.prefill`` inside it),
+``engine.pages`` (the decode write pages), and inside
+``engine.decode_step`` and ``engine.spec_verify`` three children that
+cover it: ``engine.decode.inputs`` (the block table and lengths on the
+device), ``engine.decode.launch`` (the family's step, which only enqueues
+on a card) and ``engine.decode.wait`` (the closing synchronisation).
 """
 
 from __future__ import annotations
@@ -78,7 +88,7 @@ import torch
 
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
-from repro_torch.obs import _WALL, get_registry, get_tracer, wall_now
+from repro_torch.obs import _WALL, get_tracer, wall_now
 from repro_torch.serving.sampling import masked_logits, sample
 from repro_torch.sim.executor import (paged_admit_ok, pages_for,
                                       prefix_hit_pages, quantized_pages)
@@ -117,6 +127,11 @@ class EngineStats:
     decode_steps: int = 0         # batched decode_step invocations
     prefill_wall_s: float = 0.0   # wall time inside prefill calls
     decode_wall_s: float = 0.0    # wall time inside decode_step calls
+    # host time enqueuing those calls (engine.decode.launch): near
+    # decode_wall_s, the host paces the step
+    decode_launch_s: float = 0.0
+    queue_wait_s: float = 0.0     # admission start - enqueued_at, summed
+    admitted: int = 0             # requests taken from the queue to prefill
     peak_resident: int = 0        # max concurrently resident sequences
     preempted: int = 0            # paged: preempt-and-requeue events
     handoffs: int = 0             # disagg: KV handoffs extracted/accepted
@@ -433,11 +448,25 @@ class Engine:
 
     # ------------------------------------------------------------- admission
     def _admit(self) -> None:
-        if self.paged:
-            self._admit_paged()
-            return
+        """Take queued requests into free slots and prefill them, in one
+        ``engine.admit`` span whenever the queue holds a request."""
         if not self._queue:
             return
+        with get_tracer().wall("engine.admit", who=self.owner,
+                               queued=len(self._queue)) as sp:
+            if self.paged:
+                self._admit_paged(sp.t0)
+            else:
+                self._admit_slots(sp.t0)
+
+    def _count_admitted(self, reqs: List[GenRequest], t0: float) -> None:
+        """Queue wait of requests leaving the queue for a prefill, at an
+        admission that started at ``t0``."""
+        for r in reqs:
+            self.stats.queue_wait_s += t0 - r.enqueued_at
+        self.stats.admitted += len(reqs)
+
+    def _admit_slots(self, t0: float) -> None:
         resident = any(s is not None for s in self._slots)
         if not self.continuous and resident:
             return                     # wave batching: refill only when empty
@@ -466,6 +495,7 @@ class Engine:
                 rest.append(r)
         self._queue = rest
         if take:
+            self._count_admitted([r for _, r in take], t0)
             self._prefill_into(take)
 
     def _prompt_batch(self, take: List[Tuple[int, GenRequest]], plen: int
@@ -520,9 +550,7 @@ class Engine:
     def _pages(self, tokens: int) -> int:
         return pages_for(tokens, self.page_size)
 
-    def _admit_paged(self) -> None:
-        if not self._queue:
-            return
+    def _admit_paged(self, t0: float) -> None:
         resident = any(s is not None for s in self._slots)
         if not self.continuous and resident:
             return                     # wave batching: refill only when empty
@@ -590,6 +618,7 @@ class Engine:
                 rest.append(r)
         self._queue = rest
         if take:
+            self._count_admitted([r for _, r in take], t0)
             self._grow_tables(max(self._pages(self._required(r))
                                   for _, r in take))
             self._prefill_paged(take)
@@ -664,7 +693,6 @@ class Engine:
         self.stats.peak_resident = max(self.stats.peak_resident,
                                        self.active_slots())
         if self.prefix_cache:
-            reg = get_registry()
             for i, r in take:
                 cached = len(shared[i]) * ps
                 p = max(1, len(r.tokens))
@@ -672,8 +700,6 @@ class Engine:
                 self.prefix_hit_tokens += cached
                 self.prefix_hit_rate += _PREFIX_HIT_EMA_BETA * (
                     cached / p - self.prefix_hit_rate)
-                reg.counter("engine.prefix.lookup_tokens").inc(p)
-                reg.counter("engine.prefix.hit_tokens").inc(cached)
         if self.spec:
             self._spec_prefill_draft(take)
 
@@ -906,9 +932,6 @@ class Engine:
         cached = len(pages) * self.page_size
         self.prefix_lookup_tokens += p
         self.prefix_hit_tokens += cached
-        reg = get_registry()
-        reg.counter("engine.prefix.lookup_tokens").inc(p)
-        reg.counter("engine.prefix.hit_tokens").inc(cached)
         self.prefix_hit_rate += _PREFIX_HIT_EMA_BETA * (
             cached / p - self.prefix_hit_rate)
         if not pages:
@@ -1091,7 +1114,6 @@ class Engine:
             self._draft_lengths[i] = 0
         self._queue.insert(0, r)
         self.stats.preempted += 1
-        get_registry().counter("engine.preempted").inc()
         tr = get_tracer()
         if tr.enabled:
             tr.event("executor.preempt", r.rid, self.owner, wall_now(),
@@ -1104,21 +1126,23 @@ class Engine:
         pool pressure the most recently admitted resident is preempted
         until a page frees; oldest rows are served first, so the oldest
         admission always makes progress and the loop terminates."""
-        for i in sorted(survivors, key=lambda i: self._admit_order[i]):
-            while (self._slots[i] is not None
-                   and (self._lengths[i] + lookahead - 1) // self.page_size
-                   >= len(self._held[i])):
-                if self._free or self._evictable:
-                    pg = self._claim_page()
-                    self._held[i].append(pg)
-                    idx = len(self._held[i]) - 1
-                    self._grow_tables(idx + 1)
-                    self._tables[i, idx] = pg
-                else:
-                    victims = [j for j, s in enumerate(self._slots)
-                               if s is not None]
-                    self._preempt(max(victims,
-                                      key=lambda j: self._admit_order[j]))
+        with get_tracer().wall("engine.pages", who=self.owner,
+                               rows=len(survivors)):
+            for i in sorted(survivors, key=lambda i: self._admit_order[i]):
+                while (self._slots[i] is not None
+                       and (self._lengths[i] + lookahead - 1)
+                       // self.page_size >= len(self._held[i])):
+                    if self._free or self._evictable:
+                        pg = self._claim_page()
+                        self._held[i].append(pg)
+                        idx = len(self._held[i]) - 1
+                        self._grow_tables(idx + 1)
+                        self._tables[i, idx] = pg
+                    else:
+                        victims = [j for j, s in enumerate(self._slots)
+                                   if s is not None]
+                        self._preempt(max(
+                            victims, key=lambda j: self._admit_order[j]))
         return [i for i in survivors if self._slots[i] is not None]
 
     def _paged_cache(self, lookahead: int) -> Dict:
@@ -1162,18 +1186,34 @@ class Engine:
         """Sample the next token of every resident row from its carried
         logits and append it; returns the tokens (device and host) and the
         rows that survive."""
-        temps_np = np.zeros(self.max_batch, np.float32)
-        for i in resident:
-            temps_np[i] = self._slots[i].req.temperature
-        temps = (0.0 if (temps_np <= 0.0).all()
-                 else torch.from_numpy(temps_np).to(self.device))
-        cur = sample(self.generator, self._logits, temperature=temps,
-                     vocab_size=self.cfg.vocab_size)
-        cur_np = cur[:, 0].cpu().numpy()
-        now = wall_now()
-        survivors = [i for i in resident
-                     if self._append_token(i, int(cur_np[i]), now, finished)]
+        with get_tracer().wall("engine.sample", who=self.owner,
+                               rows=len(resident)):
+            temps_np = np.zeros(self.max_batch, np.float32)
+            for i in resident:
+                temps_np[i] = self._slots[i].req.temperature
+            temps = (0.0 if (temps_np <= 0.0).all()
+                     else torch.from_numpy(temps_np).to(self.device))
+            cur = sample(self.generator, self._logits, temperature=temps,
+                         vocab_size=self.cfg.vocab_size)
+            cur_np = cur[:, 0].cpu().numpy()
+            now = wall_now()
+            survivors = [i for i in resident
+                         if self._append_token(i, int(cur_np[i]), now,
+                                               finished)]
         return cur, cur_np, survivors
+
+    def _launch_and_wait(self, fn: Callable, *args):
+        """``fn(*args)``, the family's decode or verify step, inside
+        ``engine.decode.launch`` (on a card it only enqueues), then the
+        wait for the card inside ``engine.decode.wait``; the launch's time
+        goes to ``EngineStats.decode_launch_s``."""
+        tr = get_tracer()
+        with tr.wall("engine.decode.launch", who=self.owner) as sp:
+            out = fn(*args)
+        with tr.wall("engine.decode.wait", who=self.owner):
+            _sync(self.device)
+        self.stats.decode_launch_s += sp.dt
+        return out
 
     def step(self) -> List[GenRequest]:
         """One engine iteration: sample a token for every resident sequence,
@@ -1204,17 +1244,18 @@ class Engine:
         #    their first real decode, and their logits are kept
         if survivors:
             dev = self.device
-            with get_tracer().wall("engine.decode_step", who=self.owner,
-                                   batch=len(survivors)) as spn:
-                if self.paged:
-                    logits, _ = self._decode_paged(
-                        self.params, self.cfg, self._paged_cache(1), cur)
-                else:
-                    cache = {**self._cache, "length": torch.from_numpy(
-                        self._lengths.astype(np.int32)).to(dev)}
-                    logits, _ = self._decode(self.params, self.cfg, cache,
-                                             cur)
-                _sync(dev)
+            tr = get_tracer()
+            with tr.wall("engine.decode_step", who=self.owner,
+                         batch=len(survivors)) as spn:
+                with tr.wall("engine.decode.inputs", who=self.owner):
+                    if self.paged:
+                        cache = self._paged_cache(1)
+                    else:
+                        cache = {**self._cache, "length": torch.from_numpy(
+                            self._lengths.astype(np.int32)).to(dev)}
+                logits, _ = self._launch_and_wait(
+                    self._decode_paged if self.paged else self._decode,
+                    self.params, self.cfg, cache, cur)
             self.stats.decode_wall_s += spn.dt
             keep = torch.tensor(survivors, device=dev)
             self._logits[keep] = logits[keep]
@@ -1277,11 +1318,13 @@ class Engine:
         # KV lands past the valid length and is overwritten by the next one
         toks = torch.from_numpy(
             np.concatenate([cur_np[:, None], drafts], axis=1)).to(dev)
-        with get_tracer().wall("engine.spec_verify", who=self.owner,
-                               k=k, batch=len(survivors)) as vsp:
-            vlogits, _ = self._verify(self.params, self.cfg,
-                                      self._paged_cache(k + 1), toks)
-            _sync(dev)
+        tr = get_tracer()
+        with tr.wall("engine.spec_verify", who=self.owner,
+                     k=k, batch=len(survivors)) as vsp:
+            with tr.wall("engine.decode.inputs", who=self.owner):
+                cache = self._paged_cache(k + 1)
+            vlogits, _ = self._launch_and_wait(self._verify, self.params,
+                                               self.cfg, cache, toks)
         self.stats.decode_wall_s += vsp.dt
         self.stats.verify_wall_s += vsp.dt
         tgt = _greedy_tokens(vlogits, self.cfg.vocab_size).cpu().numpy()
@@ -1331,6 +1374,7 @@ class Engine:
             return []
         wave, self._queue = (self._queue[:self.max_batch],
                              self._queue[self.max_batch:])
+        self._count_admitted(wave, wall_now())
         return self._generate_wave(wave)
 
     def _serve_wave(self, reqs: List[GenRequest]) -> List[GenRequest]:
@@ -1391,9 +1435,8 @@ class Engine:
                 break
             with get_tracer().wall("engine.decode_step", who=self.owner,
                                    batch=int((~done).sum())) as sp:
-                logits, cache = self._decode(self.params, self.cfg, cache,
-                                             cur)
-                _sync(dev)
+                logits, cache = self._launch_and_wait(
+                    self._decode, self.params, self.cfg, cache, cur)
             self.stats.decode_wall_s += sp.dt
             self.stats.decode_tokens += int((~done).sum())
             self.stats.decode_steps += 1
