@@ -1358,21 +1358,47 @@ class Consistency:
 def recorder(eng, attr, steps):
     """Wrap ``eng``'s decode or verify forward ``attr`` so that each step
     appends its live rows' fed histories, tokens and logits to
-    ``steps``."""
+    ``steps``; for a paged engine's decode, also the launch of the
+    step's CUDA graphs, which the engine calls in its place on the
+    card."""
     fwd = getattr(eng, attr)
 
-    def recording(p, c_, cache, tok):
+    def live():
         # rows with a sampled token are the step's live rows; their fed
         # history is the prompt plus what they emitted before it
-        live = {i: [int(t) for t in s.req.tokens] + s.out[:-1]
+        return {i: [int(t) for t in s.req.tokens] + s.out[:-1]
                 for i, s in enumerate(eng._slots)
                 if s is not None and s.out}
+
+    def recording(p, c_, cache, tok):
+        rows = live()
         logits, cache = fwd(p, c_, cache, tok)
-        if live:
-            steps.append((live, tok.cpu().tolist(), logits.float().cpu()))
+        if rows:
+            steps.append((rows, tok.cpu().tolist(), logits.float().cpu()))
         return logits, cache
 
     setattr(eng, attr, recording)
+    build = getattr(eng, "_build_graphs", None)
+    if attr != "_decode_paged" or build is None:
+        return
+
+    def building(*args):
+        graphs = build(*args)
+        if graphs is not None:
+            launch = graphs.launch
+
+            def recording_launch(block_tables, attend):
+                rows = live()
+                logits = launch(block_tables, attend)
+                if rows:
+                    steps.append((rows, graphs.inputs["token"].cpu().tolist(),
+                                  logits.float().cpu()))
+                return logits
+
+            graphs.launch = recording_launch
+        return graphs
+
+    eng._build_graphs = building
 
 
 def wave_recorder(eng, steps, prompts):

@@ -10,9 +10,12 @@ their sliding-window variants:
 ``last_positions``, the slot cache (``init_cache``, ``decode_step`` with
 (B,) lengths, or one scalar length for the lock-step wave), the KV page
 pools (``init_paged_pools``, ``prefill_to_pages``,
-``_scatter_pool_writes``), ``paged_decode_step`` and the speculative
-``paged_verify_step``, each with its int8 form (``cfg.kv_quant``: int8
-K/V plus bf16 per-(token, head) scales, quantized on write).  Public
+``_scatter_pool_writes``), ``paged_decode_step`` (its staged inputs
+``paged_decode_inputs`` and its pieces ``paged_decode_piece``, which
+``PagedDecodeGraphs`` captures as CUDA graphs on the card) and the
+speculative ``paged_verify_step``, each with its int8 form
+(``cfg.kv_quant``: int8 K/V plus bf16 per-(token, head) scales,
+quantized on write).  Public
 functions keep the reference's layouts: weights ``(d_in, d_out)`` stacked
 on a leading layer axis, slot caches ``(L, B, C, Hkv, dh)``, pools
 ``(L, P, page, Hkv, dh)``, scales ``(..., 1)``.  Under M-RoPE a decode or
@@ -544,6 +547,51 @@ def _paged_attention(pools: Dict, l: int, q: torch.Tensor,
     return op(q, kp, vp, block_tables, lengths)
 
 
+def paged_decode_inputs(cfg: ModelConfig, block_tables: torch.Tensor,
+                        lengths: torch.Tensor, page: int
+                        ) -> Dict[str, torch.Tensor]:
+    """A paged decode step's inputs staged from its table (B, maxp) and
+    lengths (B,): each row's positions ``pos`` (as ``_project_qkv`` takes
+    them), its write page ``phys_page`` = ``bt[b, lengths[b] // page]``
+    (the page index clamped to the table, as the reference clamps) and
+    slot ``page_slot`` = ``lengths[b] % page``, and the ``attend`` (B,)
+    int32 positions it attends after its write."""
+    maxp = block_tables.shape[1]
+    rows = torch.arange(block_tables.shape[0], device=block_tables.device)
+    lens = lengths.long()
+    return {"pos": _step_positions(cfg, lens[:, None]),
+            "phys_page": block_tables[
+                rows, torch.clamp(lens // page, max=maxp - 1)].long(),
+            "page_slot": lens % page,
+            "attend": (lengths + 1).to(torch.int32)}
+
+
+def paged_decode_piece(params: Dict, cfg: ModelConfig, pools: Dict, l: int,
+                       inputs: Dict[str, torch.Tensor],
+                       carry: Optional[Tuple] = None) -> Tuple:
+    """Piece ``l`` of the paged decode step, the dense work between two
+    paged attentions: the embedding of ``inputs["token"]`` (l = 0), else
+    layer l-1's finish over ``carry`` = (x, h, attn); then layer l's norm,
+    q/k/v projections, RoPE and KV page write at ``inputs``' staged
+    ``pos``, ``phys_page`` and ``page_slot``.  Returns (x, h, roped q) for
+    l < n_layers, and for l = n_layers (x, None, logits) after the final
+    norm and the head."""
+    if l == 0:
+        x = params["embed"][inputs["token"]]
+    else:
+        x, h, attn = carry
+        x = _finish_block(_layer(params, l - 1), cfg, x, h, attn)
+    if l == cfg.n_layers:
+        x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
+        return x, None, logits_of(params, cfg, x)
+    lp = _layer(params, l)
+    h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
+    q, k, v = _project_qkv(lp, cfg, h, inputs["pos"])
+    _scatter_pool_writes(pools, l, inputs["phys_page"], inputs["page_slot"],
+                         k, v, squeeze=True)
+    return x, h, q
+
+
 def paged_decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
                       token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """One decode step against paged KV.
@@ -557,30 +605,117 @@ def paged_decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     its ``lengths[b] + 1`` valid positions.  Rows riding along resolve to
     the scratch page 0.  The pools are updated in place.  Returns
     (logits (B, 1, padded_vocab), cache with lengths + 1).
+
+    The step is ``PagedDecodeGraphs``' composition run eagerly: its
+    ``n_layers + 1`` pieces (``paged_decode_piece``) with each layer's
+    paged attention between them, the body its graphs replay on the card.
     """
-    x = params["embed"][token]
     bt = cache["block_tables"]
-    lengths = cache["lengths"]
-    page = cache["k_pool"].shape[2]
-    maxp = bt.shape[1]
-    rows = torch.arange(bt.shape[0], device=bt.device)
-    lens = lengths.long()
-    phys_page = bt[rows, torch.clamp(lens // page, max=maxp - 1)].long()
-    page_slot = lens % page
-    attend = (lengths + 1).to(torch.int32)
-    pos = _step_positions(cfg, lens[:, None])
     pools = {n: cache[n] for n in _pool_names(cache)}
-    for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        h = cm.apply_norm(x, lp["ln1"], cfg.norm_type)
-        q, k, v = _project_qkv(lp, cfg, h, pos)
-        _scatter_pool_writes(pools, l, phys_page, page_slot, k, v,
-                             squeeze=True)
-        attn = _paged_attention(pools, l, q, bt, attend, verify=False)
-        x = _finish_block(lp, cfg, x, h, attn)
-    x = cm.apply_norm(x, params["final_norm"], cfg.norm_type)
-    return logits_of(params, cfg, x), {**pools, "block_tables": bt,
-                                  "lengths": attend}
+    steps = PagedDecodeGraphs(params, cfg, pools, token.shape[0])
+    staged = steps.stage(token, bt, cache["lengths"])
+    return steps.launch(bt, staged["attend"]), {
+        **pools, "block_tables": bt, "lengths": staged["attend"]}
+
+
+class PagedDecodeGraphs:
+    """The paged decode step of one engine's pools as CUDA graphs: one
+    graph a piece (``paged_decode_piece``), all in one private memory
+    pool, with each layer's paged attention launched eagerly between
+    them, since its launch (the table's width, its split count and
+    workspace) changes from step to step.
+
+    The static inputs are the token (B, 1), the staged positions, write
+    pages and slots (``stage`` copies a step's into them) and one
+    attention buffer that each layer's attention output is copied into
+    before the next piece replays.  Until ``capture`` the pieces run
+    eagerly on the same buffers, which is how the CPU tests hold this
+    composition to the reference.  The pools must stay the ones given:
+    the graphs write into them."""
+
+    def __init__(self, params: Dict, cfg: ModelConfig, pools: Dict,
+                 batch: int) -> None:
+        dev = pools["k_pool"].device
+        self.params, self.cfg, self.pools = params, cfg, pools
+        long = dict(dtype=torch.long, device=dev)
+        self.inputs = {"token": torch.zeros((batch, 1), **long),
+                       "pos": _step_positions(
+                           cfg, torch.zeros((batch, 1), **long)).clone(),
+                       "phys_page": torch.zeros((batch,), **long),
+                       "page_slot": torch.zeros((batch,), **long)}
+        self.attn = torch.zeros((batch, 1, cfg.n_heads, cfg.head_dim),
+                                dtype=params["embed"].dtype, device=dev)
+        self.graphs: list = []
+        # each piece's (x, h, q or logits): the next piece's inputs
+        self.outs: list = [None] * (cfg.n_layers + 1)
+
+    def _piece(self, l: int) -> Tuple:
+        carry = None if l == 0 else self.outs[l - 1][:2] + (self.attn,)
+        return paged_decode_piece(self.params, self.cfg, self.pools, l,
+                                  self.inputs, carry)
+
+    def capture(self) -> None:
+        """Capture every piece, on a side stream, after one eager warm-up
+        pass there whose page writes land on the scratch page 0 (the
+        static write pages are zero until ``stage``)."""
+        dev = self.pools["k_pool"].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.stream(side):
+            for l in range(self.cfg.n_layers + 1):
+                self.outs[l] = self._piece(l)
+            for l in range(self.cfg.n_layers + 1):
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=pool)
+                self.outs[l] = self._piece(l)
+                g.capture_end()
+                self.graphs.append(g)
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def stage(self, token: torch.Tensor, block_tables: torch.Tensor,
+              lengths: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Stage a step: its inputs from its table and lengths
+        (``paged_decode_inputs``) and its token (B, 1), copied into the
+        static inputs.  Returns the staged inputs, whose ``attend``
+        lengths the launch takes."""
+        staged = paged_decode_inputs(self.cfg, block_tables, lengths,
+                                     self.pools["k_pool"].shape[2])
+        self.inputs["token"].copy_(token)
+        for name in ("pos", "phys_page", "page_slot"):
+            self.inputs[name].copy_(staged[name])
+        return staged
+
+    def launch(self, block_tables: torch.Tensor,
+               attend: torch.Tensor) -> torch.Tensor:
+        """The staged step: each piece replayed (run, before ``capture``)
+        and each layer's paged attention between them, over the step's
+        own ``block_tables`` and ``attend`` lengths.  Returns the logits
+        (B, 1, padded_vocab), a static output the next launch
+        overwrites."""
+        for l in range(self.cfg.n_layers + 1):
+            if l:
+                self.attn.copy_(_paged_attention(
+                    self.pools, l - 1, self.outs[l - 1][2], block_tables,
+                    attend, verify=False))
+            if self.graphs:
+                self.graphs[l].replay()
+            else:
+                self.outs[l] = self._piece(l)
+        return self.outs[-1][2]
+
+
+def paged_decode_graphs(params: Dict, cfg: ModelConfig, pools: Dict,
+                        batch: int) -> Optional[PagedDecodeGraphs]:
+    """``batch``-row paged decode steps over ``pools`` as captured CUDA
+    graphs where the weights are on the card; None, so that the step
+    stays eager, elsewhere and under M-RoPE (``common.apply_mrope``
+    builds its section index from a host list, which capture refuses)."""
+    if params["embed"].device.type != "cuda" or cfg.mrope:
+        return None
+    graphs = PagedDecodeGraphs(params, cfg, pools, batch)
+    graphs.capture()
+    return graphs
 
 
 def paged_verify_step(params: Dict, cfg: ModelConfig, cache: Dict,

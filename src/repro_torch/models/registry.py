@@ -35,6 +35,9 @@ class Family(NamedTuple):
     prefill_to_pages: Optional[Callable] = None
     # speculative verify of K tokens against the pools (needs paged)
     paged_verify: Optional[Callable] = None
+    # (params, cfg, pools, batch) -> the paged decode step's captured
+    # graphs, or None where it stays eager (needs paged)
+    paged_decode_graphs: Optional[Callable] = None
 
 
 FAMILIES: Dict[str, Family] = {
@@ -43,13 +46,15 @@ FAMILIES: Dict[str, Family] = {
                     slot_decode=True, paged_decode=dense.paged_decode_step,
                     init_paged_pools=dense.init_paged_pools,
                     prefill_to_pages=dense.prefill_to_pages,
-                    paged_verify=dense.paged_verify_step),
+                    paged_verify=dense.paged_verify_step,
+                    paged_decode_graphs=dense.paged_decode_graphs),
     "vlm": Family(dense.init, dense.apply, dense.prefill,
                   dense.decode_step,
                   slot_decode=True, paged_decode=dense.paged_decode_step,
                   init_paged_pools=dense.init_paged_pools,
                   prefill_to_pages=dense.prefill_to_pages,
-                  paged_verify=dense.paged_verify_step),
+                  paged_verify=dense.paged_verify_step,
+                  paged_decode_graphs=dense.paged_decode_graphs),
     "moe": Family(moe.init, moe.apply, moe.prefill, moe.decode_step,
                   has_aux=True),
     "hybrid": Family(rglru.init, rglru.apply, rglru.prefill,

@@ -74,6 +74,16 @@ admission that finds a queued request, ``engine.prefill`` inside it),
 cover it: ``engine.decode.inputs`` (the block table and lengths on the
 device), ``engine.decode.launch`` (the family's step, which only enqueues
 on a card) and ``engine.decode.wait`` (the closing synchronisation).
+
+On the card a paged, non-speculative engine replays its decode step as
+the family's CUDA graphs (``dense.PagedDecodeGraphs``): the dense pieces
+between the layers' paged attentions, which launch eagerly between the
+replays.  They are captured once over the engine's pools, before the
+first decode step's span opens, and again only if the pools are
+reallocated; ``engine.decode.inputs`` then also stages the step's inputs
+into the graphs' static ones, and ``EngineStats.decode_graph_steps``
+counts the steps served by replay.  Off the card, and where the family
+keeps the step eager (M-RoPE), the same pieces run eagerly.
 """
 
 from __future__ import annotations
@@ -130,6 +140,8 @@ class EngineStats:
     # host time enqueuing those calls (engine.decode.launch): near
     # decode_wall_s, the host paces the step
     decode_launch_s: float = 0.0
+    # paged decode steps served by replaying the step's CUDA graphs
+    decode_graph_steps: int = 0
     queue_wait_s: float = 0.0     # admission start - enqueued_at, summed
     admitted: int = 0             # requests taken from the queue to prefill
     peak_resident: int = 0        # max concurrently resident sequences
@@ -257,6 +269,10 @@ class Engine:
             # K/V pages and their scale pages
             self._pool_pages = quantized_pages(usable, cfg.kv_quant) + 1
             self._kv: Optional[Dict] = None             # lazy device alloc
+            # the decode step's graphs over ``_kv``, captured at the first
+            # decode step on the card (``_decode_graphs``)
+            self._build_graphs = fam.paged_decode_graphs
+            self._graphs = None
             self._free: List[int] = list(range(1, self._pool_pages))
             self._held: List[List[int]] = [[] for _ in range(max_batch)]
             self._maxp = max(1, pages_for(2 * bucket, self.page_size))
@@ -575,6 +591,7 @@ class Engine:
                 self._pool_pages = max(self._pool_pages, needed + 1)
                 usable = self._pool_pages - 1
                 self._kv = None
+                self._graphs = None
                 self._logits = None
                 self._free = list(range(1, self._pool_pages))
                 self._flush_prefix_cache()
@@ -1009,6 +1026,7 @@ class Engine:
                 self._pool_pages = max(self._pool_pages, worst + 1)
                 usable = self._pool_pages - 1
                 self._kv = None
+                self._graphs = None
                 self._logits = None
                 self._free = list(range(1, self._pool_pages))
                 self._flush_prefix_cache()
@@ -1145,6 +1163,16 @@ class Engine:
                             victims, key=lambda j: self._admit_order[j]))
         return [i for i in survivors if self._slots[i] is not None]
 
+    def _decode_graphs(self):
+        """The paged decode step's graphs over the current pools, captured
+        when the step finds none (the pools' growth drops them with the
+        old pools, which they write into); None where the family keeps
+        the step eager (off the card, under M-RoPE)."""
+        if self._graphs is None and self._build_graphs is not None:
+            self._graphs = self._build_graphs(self.params, self.cfg,
+                                              self._kv, self.max_batch)
+        return self._graphs
+
     def _paged_cache(self, lookahead: int) -> Dict:
         """The pools with this step's block table (trimmed to the width the
         next ``lookahead`` writes need) and lengths, on the device."""
@@ -1245,6 +1273,7 @@ class Engine:
         if survivors:
             dev = self.device
             tr = get_tracer()
+            graphs = self._decode_graphs() if self.paged else None
             with tr.wall("engine.decode_step", who=self.owner,
                          batch=len(survivors)) as spn:
                 with tr.wall("engine.decode.inputs", who=self.owner):
@@ -1253,9 +1282,18 @@ class Engine:
                     else:
                         cache = {**self._cache, "length": torch.from_numpy(
                             self._lengths.astype(np.int32)).to(dev)}
-                logits, _ = self._launch_and_wait(
-                    self._decode_paged if self.paged else self._decode,
-                    self.params, self.cfg, cache, cur)
+                    if graphs is not None:
+                        staged = graphs.stage(cur, cache["block_tables"],
+                                              cache["lengths"])
+                if graphs is not None:
+                    logits = self._launch_and_wait(
+                        graphs.launch, cache["block_tables"],
+                        staged["attend"])
+                    self.stats.decode_graph_steps += 1
+                else:
+                    logits, _ = self._launch_and_wait(
+                        self._decode_paged if self.paged else self._decode,
+                        self.params, self.cfg, cache, cur)
             self.stats.decode_wall_s += spn.dt
             keep = torch.tensor(survivors, device=dev)
             self._logits[keep] = logits[keep]

@@ -89,13 +89,14 @@ def test_prefill_logits_and_kv_match(model):
 
 
 def test_paged_decode_steps_with_rider_match(model):
-    """Two real rows and a length-0 rider whose table points at the
-    scratch page 0: five paged decode steps, logits of the real rows and
-    the KV on their pages must agree."""
+    """Two real rows, one of whose writes crosses into its next page, and
+    a length-0 rider whose table points at the scratch page 0: five paged
+    decode steps (the pieces ``PagedDecodeGraphs`` composes, run eagerly),
+    logits of the real rows and the KV on their pages must agree."""
     cfg_j, cfg_t, pj, pt = model
     page, n_pages = 16, 8
     rng = np.random.default_rng(1)
-    toks, last = _prompts(rng, (20, 9), 32, cfg_j.vocab_size, cfg_j.eos_id)
+    toks, last = _prompts(rng, (20, 14), 32, cfg_j.vocab_size, cfg_j.eos_id)
     _, cj = jdense.prefill(pj, cfg_j, {"tokens": jnp.asarray(toks)},
                            capacity=32, last_positions=jnp.asarray(last))
     _, ct = dense.prefill(pt, cfg_t, torch.from_numpy(toks).long(),
@@ -107,8 +108,8 @@ def test_paged_decode_steps_with_rider_match(model):
     pools_t = dense.prefill_to_pages(
         dense.init_paged_pools(cfg_t, n_pages, page), ct,
         torch.from_numpy(phys))
-    bt = np.asarray([[1, 2, 4, 0], [3, 0, 0, 0], [0, 0, 0, 0]], np.int32)
-    lens = np.asarray([20, 9, 0], np.int32)
+    bt = np.asarray([[1, 2, 4, 0], [3, 5, 0, 0], [0, 0, 0, 0]], np.int32)
+    lens = np.asarray([20, 14, 0], np.int32)
     cache_j = {**pools_j, "block_tables": jnp.asarray(bt),
                "lengths": jnp.asarray(lens)}
     cache_t = {**pools_t, "block_tables": torch.from_numpy(bt),
@@ -124,8 +125,8 @@ def test_paged_decode_steps_with_rider_match(model):
         np.testing.assert_array_equal(cache_t["lengths"].numpy(),
                                       np.asarray(cache_j["lengths"]))
     for name in ("k_pool", "v_pool"):
-        np.testing.assert_allclose(cache_t[name][:, 1:5].numpy(),
-                                   np.asarray(cache_j[name])[:, 1:5],
+        np.testing.assert_allclose(cache_t[name][:, 1:6].numpy(),
+                                   np.asarray(cache_j[name])[:, 1:6],
                                    atol=ATOL)
 
 
@@ -189,7 +190,7 @@ def test_paged_verify_steps_match(model):
     cfg_j, cfg_t, pj, pt = model
     page, n_pages, kq = 16, 8, 5
     rng = np.random.default_rng(5)
-    toks, last = _prompts(rng, (20, 9), 32, cfg_j.vocab_size, cfg_j.eos_id)
+    toks, last = _prompts(rng, (20, 14), 32, cfg_j.vocab_size, cfg_j.eos_id)
     _, cj = jdense.prefill(pj, cfg_j, {"tokens": jnp.asarray(toks)},
                            capacity=32, last_positions=jnp.asarray(last))
     _, ct = dense.prefill(pt, cfg_t, torch.from_numpy(toks).long(),
